@@ -1,0 +1,287 @@
+"""Timing-model parameters, cut to the kinds the GLS fit-step slice uses.
+
+Counterpart of ``pint_tpu/models/parameter.py``: float (f64 or
+double-double), MJD epoch, angle, mask, bool and string parameters.  Each
+declares its par-file ``units`` and a ``scale_to_internal`` factor to the
+unit-free internal convention (seconds, radians, Hz) the kernels read.
+
+Internal values, as :func:`reference_values` hands them to kernels:
+
+- f64 float, angle, mask: a Python float;
+- double-double float (F0): a :class:`HostDD` scalar;
+- epoch: ``(mjd_int, HostDD seconds-of-day)``.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Optional
+
+import numpy as np
+
+from pint_tpu_torch.constants import DEG_TO_RAD, HOUR_TO_RAD, SECS_PER_DAY
+from pint_tpu_torch.timebase.hostdd import HostDD, carry_days
+
+_FORTRAN_EXP = re.compile(r"[dD]")
+
+
+def _fortran_to_e(s: str) -> str:
+    return _FORTRAN_EXP.sub("e", s)
+
+
+def _parse_float_str(s: str) -> float:
+    return float(_fortran_to_e(s))
+
+
+def _parse_sexagesimal(s: str) -> tuple[float, int]:
+    s = s.strip()
+    sign = 1
+    if s.startswith("-"):
+        sign, s = -1, s[1:]
+    elif s.startswith("+"):
+        s = s[1:]
+    parts = s.split(":")
+    if len(parts) > 3 or any(p == "" for p in parts):
+        raise ValueError(f"bad sexagesimal angle {s!r}")
+    val = 0.0
+    for i, p in enumerate(parts):
+        val += float(p) / 60.0**i
+    return val, sign
+
+
+class Parameter:
+    """Base parameter.  The internal (kernel-unit) value is what the
+    parameter stores: ``value`` reads and writes it in par-file units
+    through ``scale_to_internal``, so a value set from exported internal
+    state reaches the kernels bit for bit."""
+
+    def __init__(self, name, value=None, units="", aliases=(), frozen=True,
+                 uncertainty: Optional[float] = None, scale_to_internal=1.0):
+        self.name = name
+        self.units = units
+        self.aliases = tuple(aliases)
+        self.frozen = frozen
+        self.uncertainty = uncertainty
+        self.scale_to_internal = scale_to_internal
+        self._internal = None
+        self.value = value
+
+    @property
+    def value(self):
+        return None if self._internal is None else self._from_internal(
+            self._internal
+        )
+
+    @value.setter
+    def value(self, v):
+        self._internal = None if v is None else self._to_internal(v)
+
+    def _to_internal(self, v):
+        return v * self.scale_to_internal
+
+    def _from_internal(self, i):
+        return i / self.scale_to_internal
+
+    def name_matches(self, name: str) -> bool:
+        name = name.upper()
+        return name == self.name.upper() or name in (
+            a.upper() for a in self.aliases
+        )
+
+    def set_from_tokens(self, tokens: list[str]):
+        """tokens: [value] or [value fit] or [value fit unc].  A parameter
+        read from a par file is frozen unless its fit flag is '1' (tempo
+        convention); any other numeric second token is an uncertainty."""
+        self.value = self._parse_value_str(tokens[0])
+        self.frozen = True
+        if len(tokens) >= 2:
+            if tokens[1] in ("0", "1"):
+                self.frozen = tokens[1] == "0"
+                if len(tokens) >= 3:
+                    self.uncertainty = _parse_float_str(tokens[2])
+            else:
+                self.uncertainty = _parse_float_str(tokens[1])
+
+    def _parse_value_str(self, s: str):
+        return s
+
+    def internal(self):
+        return self._internal
+
+    def set_internal(self, v):
+        self._internal = v
+
+    def set_internal_uncertainty(self, u):
+        self.uncertainty = u / self.scale_to_internal
+
+    def __repr__(self):
+        fit = "" if self.frozen else " FIT"
+        return f"<{type(self).__name__} {self.name}={self.value}{fit}>"
+
+
+class floatParameter(Parameter):
+    def __init__(self, name, value=None, long_double=False, **kw):
+        # long_double (reference naming) => double-double precision
+        self.precision = "dd" if long_double else "f64"
+        super().__init__(name, value=value, **kw)
+
+    def _parse_value_str(self, s):
+        if self.precision == "dd":
+            return HostDD.from_string(_fortran_to_e(s))
+        return _parse_float_str(s)
+
+    def set_internal(self, v):
+        if self.precision == "dd" and not isinstance(v, HostDD):
+            v = HostDD(np.float64(v))
+        self._internal = v
+
+
+class boolParameter(Parameter):
+    def _parse_value_str(self, s):
+        s = s.strip().upper()
+        if s in ("Y", "YES", "T", "TRUE", "1"):
+            return True
+        if s in ("N", "NO", "F", "FALSE", "0"):
+            return False
+        raise ValueError(f"cannot parse bool {s!r}")
+
+    def set_from_tokens(self, tokens):
+        self.value = self._parse_value_str(tokens[0]) if tokens else True
+
+    def _to_internal(self, v):
+        return v
+
+    _from_internal = _to_internal
+
+
+class strParameter(Parameter):
+    def set_from_tokens(self, tokens):
+        self.value = " ".join(tokens)
+
+    def _to_internal(self, v):
+        return v
+
+    _from_internal = _to_internal
+
+
+class MJDParameter(Parameter):
+    """Epoch parameter (PEPOCH, POSEPOCH, DMEPOCH), exact two-part TDB."""
+
+    def __init__(self, name, value=None, **kw):
+        kw.setdefault("units", "MJD")
+        super().__init__(name, value=value, **kw)
+
+    def _parse_value_str(self, s):
+        """pulsar_mjd convention: fraction of an 86400 s day."""
+        s = _fortran_to_e(s).strip()
+        if s.startswith("-") or "e" in s.lower():
+            raise ValueError(f"unsupported MJD string {s!r}")
+        ipart, _, fpart = s.partition(".")
+        sec = HostDD.from_string("0." + (fpart or "0")) * SECS_PER_DAY
+        return int(ipart), HostDD(sec.hi, sec.lo)
+
+    def _to_internal(self, v):
+        """-> (mjd_int, sec HostDD scalar)."""
+        return v
+
+    _from_internal = _to_internal
+
+    def add_internal_delta(self, dsec: float):
+        """Shift the epoch by dsec seconds, carrying whole days."""
+        day, sec = self.value
+        d, s = carry_days(np.asarray([day]), HostDD([sec.hi], [sec.lo]) + dsec)
+        self.value = (int(d[0]), HostDD(s.hi[0], s.lo[0]))
+
+    def set_internal(self, v):
+        raise TypeError(
+            "epoch parameters update via add_internal_delta, not set_internal"
+        )
+
+    def set_internal_uncertainty(self, u):
+        self.uncertainty = u / SECS_PER_DAY  # par files carry days
+
+
+class AngleParameter(Parameter):
+    """RAJ/DECJ; internal radians.  Uncertainties in the par file are
+    seconds of time (H:M:S) or arcseconds (D:M:S), tempo convention."""
+
+    #: par-file uncertainty units per radian (tempo convention)
+    _UNC_PER_RAD = {
+        "H:M:S": 12.0 * 3600.0,
+        "D:M:S": 180.0 * 3600.0,
+        "deg": 180.0,
+    }
+
+    def __init__(self, name, value=None, units="rad", **kw):
+        super().__init__(name, value=value, units=units, **kw)
+
+    def _parse_value_str(self, s):
+        if self.units == "H:M:S":
+            val, sign = _parse_sexagesimal(s)
+            return sign * val * HOUR_TO_RAD
+        if self.units == "D:M:S":
+            val, sign = _parse_sexagesimal(s)
+            return sign * val * DEG_TO_RAD
+        if self.units == "deg":
+            return _parse_float_str(s) * np.pi / 180.0
+        return _parse_float_str(s)
+
+    def _to_internal(self, v):
+        return float(v)  # radians
+
+    _from_internal = _to_internal
+
+    def set_internal(self, v):
+        self._internal = float(v)
+
+    def set_internal_uncertainty(self, u):
+        per = self._UNC_PER_RAD.get(self.units)
+        self.uncertainty = u if per is None else u * per / np.pi
+
+
+class maskParameter(floatParameter):
+    """Parameter applying to a TOA subset (EFAC, EQUAD, ...).  Selections
+    are computed on the host at compile time and become static 0/1
+    columns in the bundle."""
+
+    def __init__(self, name, key=None, key_value=(), **kw):
+        self.key = key  # '-flag', 'mjd', 'freq'
+        self.key_value = list(key_value)
+        super().__init__(name, **kw)
+
+    def set_from_tokens(self, tokens):
+        key = tokens[0]
+        if key.lower() in ("mjd", "freq"):
+            self.key = key.lower()
+            self.key_value = [float(tokens[1]), float(tokens[2])]
+            rest = tokens[3:]
+        elif key.startswith("-"):
+            self.key = key
+            self.key_value = [tokens[1]]
+            rest = tokens[2:]
+        else:
+            raise NotImplementedError(
+                f"mask parameter {self.name}: selection key {key!r} is not "
+                "ported yet (ROADMAP A11, the independent par/tim ingest)"
+            )
+        if rest:
+            super().set_from_tokens(rest)
+        else:
+            self.value = 0.0
+
+    def select(self, toas) -> np.ndarray:
+        """Boolean mask over a TOA table (host-side)."""
+        n = len(toas["freq_mhz"])
+        if self.key is None:
+            return np.ones(n, dtype=bool)
+        if self.key == "mjd":
+            m = toas["tdb_day"] + (
+                toas["tdb_sec_hi"] + toas["tdb_sec_lo"]
+            ) / SECS_PER_DAY
+            return (m >= self.key_value[0]) & (m <= self.key_value[1])
+        if self.key == "freq":
+            f = toas["freq_mhz"]
+            return (f >= self.key_value[0]) & (f <= self.key_value[1])
+        flag = self.key.lstrip("-")
+        want = str(self.key_value[0])
+        return np.array([str(f.get(flag, "")) == want for f in toas["flags"]])

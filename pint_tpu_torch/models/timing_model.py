@@ -1,0 +1,331 @@
+"""TimingModel: ordered component composition -> compiled tensor kernels.
+
+Counterpart of ``pint_tpu/models/timing_model.py``.  A TimingModel is an
+ordered bag of components (delays folded in category order, each seeing
+the accumulated delay; phase components summed at the delayed time).
+``compile(toas, device)`` freezes it against a TOA table: mask parameters
+become static 0/1 columns, and the result is a :class:`CompiledModel`
+whose kernels are pure functions of ``x`` — the f64 vector of deltas of
+the free parameters from their reference values (internal units).  x = 0
+reproduces the reference model; ``commit(x)`` folds deltas back into the
+host parameters.  The design matrix is ``torch.func.jacfwd`` of the
+phase-residual kernel over the spin frequency.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch.func import jacfwd
+
+from pint_tpu_torch.device import F64, resolve_device
+from pint_tpu_torch.models.component import (
+    DEFAULT_ORDER,
+    Component,
+    DelayComponent,
+    NoiseComponent,
+    PhaseComponent,
+)
+from pint_tpu_torch.models.parameter import MJDParameter, Parameter
+from pint_tpu_torch.ops.dd import DD
+from pint_tpu_torch.ops.phase import Phase
+from pint_tpu_torch.timebase.hostdd import HostDD
+from pint_tpu_torch.toas.bundle import TOABundle, make_bundle
+
+
+class TimingModel:
+    """Host-side model: components + top-level metadata parameters."""
+
+    def __init__(self, components=(), name: str = ""):
+        self.name = name
+        self.components: dict[str, Component] = {}
+        self.top_params: dict[str, Parameter] = {}
+        for c in components:
+            self.components[type(c).__name__] = c
+        self.setup()
+
+    def setup(self):
+        for c in self._ordered_components():
+            c.setup(self)
+
+    def validate(self):
+        for c in self._ordered_components():
+            c.validate(self)
+
+    def _ordered_components(self) -> list[Component]:
+        def key(c):
+            try:
+                return DEFAULT_ORDER.index(c.category)
+            except ValueError:
+                return len(DEFAULT_ORDER)
+
+        return sorted(self.components.values(), key=key)
+
+    @property
+    def delay_components(self) -> list[DelayComponent]:
+        return [c for c in self._ordered_components()
+                if isinstance(c, DelayComponent)]
+
+    @property
+    def phase_components(self) -> list[PhaseComponent]:
+        return [c for c in self._ordered_components()
+                if isinstance(c, PhaseComponent)]
+
+    @property
+    def noise_components(self) -> list[NoiseComponent]:
+        return [c for c in self._ordered_components()
+                if isinstance(c, NoiseComponent)]
+
+    @property
+    def params(self) -> dict[str, Parameter]:
+        out = dict(self.top_params)
+        for c in self._ordered_components():
+            out.update(c.params)
+        return out
+
+    @property
+    def free_params(self) -> list[str]:
+        out = []
+        for c in self._ordered_components():
+            out.extend(c.free_params)
+        return out
+
+    def _build_masks(self, toas) -> dict:
+        """Mask selections and noise bases: taken from the table's
+        precomputed ``masks`` when present (byte-identical state carried
+        across from the JAX package), else computed on the host."""
+        given = toas.get("masks") or {}
+        masks = {}
+        for c in self._ordered_components():
+            for n in c.mask_params:
+                masks[n] = (
+                    given[n] if n in given
+                    else c.params[n].select(toas).astype(np.float64)
+                )
+            if hasattr(c, "extra_masks"):
+                key = c.basis_key()
+                masks[key] = given[key] if key in given else c.extra_masks(
+                    toas
+                )[key]
+        return masks
+
+    def compile(self, toas, device=None,
+                subtract_mean: bool = True) -> "CompiledModel":
+        """Freeze against a host TOA table, or against a TOABundle that
+        is already on a device (``device`` must then agree with it)."""
+        if isinstance(toas, TOABundle):
+            if device is not None and torch.device(device) != toas.device:
+                raise ValueError(
+                    f"bundle is on {toas.device}, device={device!r} asked"
+                )
+            bundle = toas
+        else:
+            device = resolve_device(device)
+            bundle = make_bundle(toas, self._build_masks(toas), device)
+        return CompiledModel(self, bundle, subtract_mean=subtract_mean)
+
+    def __repr__(self):
+        return f"TimingModel({self.name}, [{', '.join(self.components)}])"
+
+
+def reference_values(model: TimingModel) -> dict:
+    """Reference (internal-unit) values of every set parameter: the x = 0
+    anchor of a CompiledModel's delta vector."""
+    ref: dict[str, object] = {}
+    for c in model._ordered_components():
+        for n, p in c.params.items():
+            if p.value is None:
+                continue
+            ref[n] = p.internal()
+    return ref
+
+
+def _scalar(v: float, device) -> torch.Tensor:
+    # a fill kernel: never a host-to-device copy, which would wait for the
+    # card's queue on every kernel call
+    return torch.full((), float(v), dtype=F64, device=device)
+
+
+def _device_ref(ref: dict, device) -> dict:
+    """Reference values as device scalars: floats -> f64 tensors, HostDD ->
+    DD, epochs -> (day, DD seconds); bools and strings stay static."""
+    out = {}
+    for n, v in ref.items():
+        if isinstance(v, HostDD):
+            out[n] = DD(_scalar(v.hi, device), _scalar(v.lo, device))
+        elif isinstance(v, tuple) and len(v) == 2 and isinstance(
+            v[1], HostDD
+        ):
+            day, sec = v
+            out[n] = (float(day),
+                      DD(_scalar(sec.hi, device), _scalar(sec.lo, device)))
+        elif isinstance(v, (bool, str)):
+            out[n] = v
+        elif isinstance(v, (float, int)):
+            out[n] = _scalar(v, device)
+        else:
+            out[n] = v
+    return out
+
+
+class CompiledModel:
+    """A TimingModel frozen against a TOA bundle: pure kernels of x.
+
+    x layout: one f64 entry per free parameter, in ``free_names`` order,
+    holding the delta from the reference value in internal units."""
+
+    def __init__(self, model: TimingModel, bundle: TOABundle,
+                 subtract_mean=True):
+        self.model = model
+        self.bundle = bundle
+        self.device = bundle.device
+        self.subtract_mean = subtract_mean
+        self.free_names = model.free_params
+        self._index = {n: i for i, n in enumerate(self.free_names)}
+        self.ref: dict[str, object] = reference_values(model)
+        self._ref_dev = None  # device copy of ref, rebuilt after commit()
+        self.track_mode = (
+            "use_pulse_numbers"
+            if not bool(torch.all(torch.isnan(bundle.pulse_number)))
+            else "nearest"
+        )
+
+    @property
+    def nfree(self) -> int:
+        return len(self.free_names)
+
+    def x0(self) -> torch.Tensor:
+        return torch.zeros(self.nfree, dtype=F64, device=self.device)
+
+    def _pdict(self, x):
+        """Parameter values at x: the cached device references plus the
+        deltas of the free parameters (normalized for DD values)."""
+        if self._ref_dev is None:
+            self._ref_dev = _device_ref(self.ref, self.device)
+        pd = dict(self._ref_dev)
+        for n, i in self._index.items():
+            v = pd[n]
+            if isinstance(v, DD):
+                pd[n] = (v + x[i]).normalize()
+            elif isinstance(v, tuple):
+                day, sec = v  # epoch: x[i] is a seconds delta
+                pd[n] = (day, (sec + x[i]).normalize())
+            else:
+                pd[n] = v + x[i]
+        return pd
+
+    # -- kernels ----------------------------------------------------------
+    def delay(self, x):
+        """Total delay in seconds (f64) at each TOA."""
+        pd = self._pdict(x)
+        d = torch.zeros(self.bundle.ntoa, dtype=F64, device=self.device)
+        for c in self.model.delay_components:
+            d = d + c.delay_term(pd, self.bundle, d)
+        return d
+
+    def phase(self, x) -> Phase:
+        pd = self._pdict(x)
+        b = self.bundle
+        d = torch.zeros(b.ntoa, dtype=F64, device=self.device)
+        for c in self.model.delay_components:
+            d = d + c.delay_term(pd, b, d)
+        total = DD.zeros(b.ntoa, self.device)
+        for c in self.model.phase_components:
+            total = total + c.phase_term(pd, b, d)
+        return Phase.from_dd(total)
+
+    def spin_frequency(self, x):
+        """Instantaneous spin frequency at each TOA."""
+        pd = self._pdict(x)
+        for c in self.model.phase_components:
+            if hasattr(c, "spin_frequency"):
+                return c.spin_frequency(pd, self.bundle)
+        raise ValueError("no spindown component in model")
+
+    def phase_residuals(self, x):
+        """Phase residuals in cycles (f64), no mean subtraction."""
+        ph = self.phase(x)
+        if self.track_mode == "use_pulse_numbers":
+            b = self.bundle
+            return (ph.int_ - b.pulse_number + b.padd) + ph.frac
+        return ph.frac
+
+    def scaled_sigma(self, x):
+        """Per-TOA white uncertainty in seconds after noise rescaling."""
+        pd = self._pdict(x)
+        sig = self.bundle.error_us * 1e-6
+        for c in self.model.noise_components:
+            sig = c.scaled_sigma(pd, self.bundle, sig)
+        return sig
+
+    def noise_basis(self, x):
+        """Stacked correlated-noise basis/weights (T (n, k), phi (k,)),
+        or None."""
+        pd = self._pdict(x)
+        bases, weights = [], []
+        for c in self.model.noise_components:
+            bw = c.basis_weight(pd, self.bundle)
+            if bw is not None:
+                bases.append(bw[0])
+                weights.append(bw[1])
+        if not bases:
+            return None
+        return torch.cat(bases, dim=1), torch.cat(weights)
+
+    def noise_basis_or_empty(self, x):
+        """Like noise_basis but never None: models without correlated
+        noise get one zero basis column with weight 1e-30 (the column is
+        zero, so any finite weight is exact and 1/phi stays finite)."""
+        bw = self.noise_basis(x)
+        if bw is not None:
+            return bw
+        n = self.bundle.ntoa
+        return (
+            torch.zeros((n, 1), dtype=F64, device=self.device),
+            torch.ones(1, dtype=F64, device=self.device) * 1e-30,
+        )
+
+    @property
+    def has_correlated_errors(self) -> bool:
+        return any(c.introduces_correlated_errors
+                   for c in self.model.noise_components)
+
+    def _weights(self, x):
+        return 1.0 / torch.square(self.scaled_sigma(x))
+
+    def time_residuals(self, x, subtract_mean: Optional[bool] = None):
+        """Time residuals in seconds; weighted-mean-subtracted by default."""
+        sm = self.subtract_mean if subtract_mean is None else subtract_mean
+        r = self.phase_residuals(x) / self.spin_frequency(x)
+        if sm:
+            w = self._weights(x)
+            r = r - torch.sum(w * r) / torch.sum(w)
+        return r
+
+    def design_matrix(self, x):
+        """(n_toa, n_free) d(time-resid)/d(param delta), seconds per
+        internal unit: jacfwd of the phase residual over the spin
+        frequency."""
+        jac = jacfwd(self.phase_residuals)(x)
+        return jac / self.spin_frequency(x)[:, None]
+
+    # -- commit fitted deltas back to host parameters ---------------------
+    def commit(self, x, uncertainties=None):
+        x = np.asarray(x, dtype=np.float64)
+        params = self.model.params
+        for n, i in self._index.items():
+            p = params[n]
+            ref = self.ref[n]
+            if isinstance(p, MJDParameter):
+                p.add_internal_delta(float(x[i]))
+            elif isinstance(ref, HostDD):
+                p.set_internal(ref + float(x[i]))
+            else:
+                p.set_internal(float(ref) + float(x[i]))
+            if uncertainties is not None:
+                p.set_internal_uncertainty(float(uncertainties[i]))
+        for n in self._index:
+            self.ref[n] = params[n].internal()
+        self._ref_dev = None
