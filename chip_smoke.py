@@ -32,12 +32,20 @@ Phases, each of which raises on failure (exit code != 0):
    printed, not gated); on a 2048-TOA pulsar the card's residuals, f64
    step and fourier step against the port on the CPU;
 4. each kernel against its plain PyTorch version on the card, at the
-   paths' shapes and at an odd shape: 3e-6 of scale, bitwise on rerun;
+   paths' shapes, at an odd shape and at the widest shapes of the tables
+   (k = 64 with p = 16, and with m = 16): 3e-6 of scale, bitwise on
+   rerun; and the generated basis bit for bit: ``fourier_apply`` with z
+   each block of at most 16 identity columns equals ``basis32``'s
+   columns, at the bench shape and the odd shapes (the basis generator
+   ``csrc/fourier_basis.cuh`` is shared, so this holds ``fourier_gram``'s
+   basis too);
 5. timings: CUDA events (median of 30 windows of 20 back-to-back calls,
    after warm-up) and torch.profiler device time of each kernel, of its
-   plain version and of its one-call library yardstick; each kernel's
-   bound from this run's inputs; host-clock times of one mixed, one f64
-   and one fourier step, and one mixed and one fourier step under
+   plain version and of its one-call library yardstick (for
+   ``fourier_apply`` and its yardstick also CUDA events over 20 calls
+   replayed from a CUDA graph); each kernel's bound from this run's
+   inputs; ``fourier_gram``'s two passes; host-clock times of one mixed,
+   one f64 and one fourier step, and one mixed and one fourier step under
    torch.profiler (kernel count, busy share, top operators).
 
 The last three lines are the kernels JSON, nvidia-smi's name and power
@@ -155,22 +163,47 @@ def cuda_ms(fn, reps=30, warm=3, batch=20):
     return statistics.median(ts)
 
 
-def device_ms(fn, calls=20):
+def device_ms(fn, calls=20, tries=3):
     """Device time per call from torch.profiler: the summed durations of
-    the kernels ``fn`` launches, without host gaps.  Also per kernel."""
+    the kernels ``fn`` launches, without host gaps.  Also per kernel.  A
+    profile that recorded no kernel, or a count of some kernel that is
+    not a multiple of ``calls`` (both seen on the card: it lost events),
+    is taken again; after ``tries`` such profiles the time is None."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        per, count = {}, {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                per[ev.name] = (per.get(ev.name, 0.0)
+                                + ev.device_time / 1e3 / calls)
+                count[ev.name] = count.get(ev.name, 0) + 1
+        if per and all(c % calls == 0 for c in count.values()):
+            return sum(per.values()), per
+    return None, {}
+
+
+def graph_ms(fn, calls=20):
+    """CUDA-event time per call of ``calls`` back-to-back calls captured in
+    one CUDA graph and replayed: the calls' device time without the
+    host's launch cost, which bounds a loop of short calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    per = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            per[ev.name] = per.get(ev.name, 0.0) + ev.device_time / 1e3 / calls
-    return sum(per.values()), per
+    return cuda_ms(graph.replay, batch=1) / calls
 
 
 def host_ms(fn, reps=30, warm=3):
@@ -231,6 +264,23 @@ def kernel_vs_plain(name, kernel, plain, *args):
         worst_abs = max(worst_abs, err)
         worst_rel = max(worst_rel, err / scale)
     return worst_abs, worst_rel
+
+
+def basis_check(t, f):
+    """fourier_apply_cuda with z each block of at most M_MAX columns of the
+    2k x 2k identity must equal basis32's columns bit for bit: each output
+    is one product by 1.0 plus exact zeros, i.e. the generated value."""
+    T = fourier.basis32(t, f)
+    k2 = T.shape[1]
+    eye = torch.eye(k2, dtype=torch.float64, device=t.device)
+    for c in range(0, k2, fourier.M_MAX):
+        Z = eye[:, c:c + fourier.M_MAX].contiguous()
+        got = fourier.fourier_apply_cuda(t, f, Z)
+        check(torch.equal(got, T[:, c:c + Z.shape[1]]),
+              f"generated basis differs from basis32 (n={t.shape[0]}, "
+              f"k={f.shape[0]}, columns {c}..): "
+              f"{int(torch.sum(got != T[:, c:c + Z.shape[1]]))} values")
+    return t.shape[0], f.shape[0]
 
 
 def profile_step(cm, x, mode):
@@ -435,12 +485,25 @@ def main():
     errs["fourier_apply"] = kernel_vs_plain(
         "fourier_apply", fourier.fourier_apply_cuda,
         fourier.fourier_apply_plain, ft, ff, z8)
+    t_odd7 = t_odd[:999].contiguous()
+    f_odd7 = torch.cat([f_odd, f_odd[:2] * 1.5])
     kernel_vs_plain("fourier_apply", fourier.fourier_apply_cuda,
-                    fourier.fourier_apply_plain, t_odd[:999].contiguous(),
-                    torch.cat([f_odd, f_odd[:2] * 1.5]), odd(14, 3))
-    log(f"kernels vs plain (max abs, rel): {errs}; bench shapes: "
-        f"fused_gram_joint n={n} k={k} p1={p1}; fourier n={ft.shape[0]} "
-        f"k={nh} p={pf}, apply m=8")
+                    fourier.fourier_apply_plain, t_odd7, f_odd7, odd(14, 3))
+    # the widest shapes of the tables, at the bench's n and span
+    f64h = torch.arange(1, 65, dtype=torch.float64, device=dev) / float(
+        ft.max() - ft.min())
+    wide = {"fourier_gram k=64 p=16": kernel_vs_plain(
+        "fourier_gram", fourier.fourier_gram_cuda, fourier.fourier_gram_plain,
+        ft, f64h, fw, odd(ft.shape[0], 16))}
+    wide["fourier_apply k=64 m=16"] = kernel_vs_plain(
+        "fourier_apply", fourier.fourier_apply_cuda,
+        fourier.fourier_apply_plain, ft, f64h, odd(128, 16))
+    basis_shapes = [basis_check(ft, ff), basis_check(t_odd, f_odd),
+                    basis_check(t_odd7, f_odd7), basis_check(ft, f64h)]
+    log(f"kernels vs plain (max abs, rel): {errs}; widest shapes: {wide}; "
+        f"bench shapes: fused_gram_joint n={n} k={k} p1={p1}; fourier "
+        f"n={ft.shape[0]} k={nh} p={pf}, apply m=8; basis bitwise equal to "
+        f"basis32 at (n, k) = {basis_shapes}")
 
     # 5. timings and bounds
     times = {}
@@ -470,6 +533,12 @@ def main():
         lambda: fourier.fourier_gram_plain(ft, ff, fw, fX),
         lambda: torch.matmul(Yf.T, Yf))
     times["fourier_gram"]["basis_build_ms"] = basis_ms
+    # each pass's device time; None where the profile recorded no kernel
+    parts = times["fourier_gram"]["device_parts"]
+    for key, kname in (("pass1_device_ms", "gram_pass1"),
+                       ("pass2_device_ms", "gram_pass2")):
+        got = [v for nm, v in parts.items() if kname in nm]
+        times["fourier_gram"][key] = sum(got) if got else None
     nf = ft.shape[0]
     k2 = 2 * nh
     fg_fma = nf * (k2 * (k2 + 1) // 2 + k2 * pf)
@@ -482,6 +551,12 @@ def main():
     times["fourier_apply"] = time_kernel(
         lambda: fourier.fourier_apply_cuda(ft, ff, z8),
         lambda: fourier.fourier_apply_plain(ft, ff, z8),
+        lambda: torch.matmul(Tf, z8f))
+    # both are short enough that a loop of calls waits on the host: the
+    # same loops replayed from CUDA graphs show the device's side
+    times["fourier_apply"]["graph_ms"] = graph_ms(
+        lambda: fourier.fourier_apply_cuda(ft, ff, z8))
+    times["fourier_apply"]["library_graph_ms"] = graph_ms(
         lambda: torch.matmul(Tf, z8f))
     bounds["fourier_apply"] = bound(
         8 * (nf + nh + k2 * 8) + 4 * nf * 8, 2 * nf * k2 * 8, F64_TC_FLOPS)
@@ -515,9 +590,11 @@ def main():
         })
     rows[0].update(library_f32_ms=times["fused_gram_joint"]["library_f32_ms"],
                    mixed_step_ms=mixed_ms, f64_step_ms=f64_ms)
-    rows[1].update(basis_build_ms=times["fourier_gram"]["basis_build_ms"],
-                   fourier_step_ms=four_ms,
-                   fourier_vs_f64=fourier_gates)
+    rows[1].update({key: times["fourier_gram"][key] for key in (
+        "basis_build_ms", "pass1_device_ms", "pass2_device_ms")})
+    rows[1].update(fourier_step_ms=four_ms, fourier_vs_f64=fourier_gates)
+    rows[2].update(graph_ms=times["fourier_apply"]["graph_ms"],
+                   library_graph_ms=times["fourier_apply"]["library_graph_ms"])
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,239 +1,327 @@
 // fourier_gram: the streaming-basis GLS step's Grams on Hopper (sm_90a).
 //
-// Replaces the TPU kernel pint_tpu/ops/pallas_kernels.py::fourier_gram
-// (_gram_kernel / _fourier_gram_32).  For TOA times t (n,), harmonic
+// Replaces the TPU kernel pint_tpu/ops/pallas_kernels.py:114 fourier_gram
+// (_gram_kernel :86, pallas_call :162).  For TOA times t (n,), harmonic
 // frequencies f (k,), weights w (n,) and columns X (n, p), with the
 // red-noise basis T = [sin(2 pi f_j t_i) | cos(2 pi f_j t_i)] (n, 2k)
 // generated in shared memory and never written to device memory:
 //
 //   Sigma = T^T diag(w) T (2k, 2k),  TWX = T^T diag(w) X (2k, p),  f64.
 //
-// Numerics.  t, f, w and X are read in f64 and rounded to f32 in
-// registers, as the reference casts them before its kernel.  The phase
-// argument is the reference's f32 expression (f32(2 pi) * f_j) * t_i,
-// in that order.  Its sine and cosine are the f32 roundings of the f64
-// sincos of that f32 argument: the correctly rounded f32 values (but for
-// ties within a few f64 ulps, ~1e-8 of values), so the basis is the same
-// on every device and the card's step agrees with the port's on the CPU
-// to 1e-8 (PERF.md); sincosf (2 ulp) and the CPU's f32 sine differ in
-// the last bit often enough to move the step by ~1e-7.  Never the
-// __sinf/__cosf intrinsics and never --use_fast_math, which lose
-// accuracy outside [-pi, pi] while the arguments here reach 2 pi k.  The
-// weighted basis is f32(T * w), the reference's Tw.  Every f32 product
-// is __fmul_rn, which the compiler never contracts into an FMA.  The
-// products of these f32 values are exact in f64 and are summed in f64
-// on the f64 tensor cores (mma.sync m8n8k4), where the TPU summed in
-// f32.  Zero-weight rows and padding add exact zeros.  Sigma is the
-// upper triangle (rows Tw, columns T), mirrored, so it is exactly
-// symmetric.
-//
-// Structure: fused_gram_joint.cu's, with the staging step generating
-// the basis instead of loading it.
-//   pass 1: block (bx, by) owns a contiguous range of 128-row chunks and
-//           a group of at most 64 output tiles of 8 x 8 (by picks the
-//           group; one group covers k <= 30 with p <= 8).  For each
-//           chunk it stages t and w as f32 and then the tile
-//           [T | 0 | X | 0] (128 x q_pad, f32 values widened to f64) in
-//           shared memory, the f32 products 2 pi f_j staged once per
-//           block.  Each warp owns a run of tiles of the upper block
-//           triangle (row tiles over the basis, column tiles over basis
-//           and X) and accumulates them with the MMA, forming the
-//           weighted operand f32(T * w) as it loads it.  The block writes
-//           its f64 partial tiles to scratch.
-//   pass 2: one warp per output element sums the block partials in a
-//           fixed order (lanes, then a shuffle tree).
-// No atomics: results are bitwise reproducible from run to run, and
-// depend on n alone through the constant block count.
+// Numerics.  t, f, w and X are read in f64 and rounded to f32, as the
+// reference casts them before its kernel.  The basis values are
+// fourier_basis.cuh's: the correctly rounded f32 sin and cos of the
+// reference's f32 argument, so the card's step agrees with the port's on
+// the CPU to 1e-8 (PERF.md).  The weighted basis is f32(T * w), the
+// reference's Tw, by __fmul_rn.  The products of these f32 values are
+// exact in f64 and are summed in f64 on the f64 tensor cores (mma.sync
+// m16n8k16, fourier_basis.cuh), where the TPU summed in f32.  Zero-weight
+// rows and padding add exact zeros.  Sigma is the upper triangle (rows
+// Tw, columns T), mirrored, so it is exactly symmetric.  Summation order:
+// each block sums its contiguous run of rows 16 at a time in row order
+// (the MMA's order inside a step); pass 2 sums the NB block partials as 8
+// strided runs (b = w, w + 8, ...), then the 8 runs in order.  (An
+// earlier layout of this kernel summed 4-row steps over 128-row chunks,
+// so its last bits differ from this one's.)  No atomics: bitwise
+// reproducible from run to run, and the bits depend on n alone through
+// the constant block count NB = min(ceil(n / 64), 264).
 //
 // Bound on an H100 SXM at the bench shape (n = 1e5, k = 30, p = 7): the
-// function reads 8 * n * (p + 2) = 7.2 MB (3.35 TB/s: 2.2 us) and does
-// n * (2k(2k+1)/2 + 2k p) = 2.25e8 f64 FMAs (6.7 us at the 67 TFLOP/s
-// f64 tensor-core peak) plus n k = 3e6 f64 sincos: it is bound by
-// operations.  Nothing overlaps the staging with the contraction.
+// function reads 8 n (p + 2) = 7.2 MB (2.2 us at 3.35 TB/s) and does
+// n (2k (2k + 1) / 2 + 2k p) = 2.25e8 f64 FMAs (6.7 us at the 67 TFLOP/s
+// f64 tensor-core peak, which m16n8k4/k8/k16 reach and m8n8k4 does not:
+// 66 vs 33 TFLOP/s, profiling/f64_rates.py): bound by operations.  Beside
+// that it needs n k = 3e6 sincos (libdevice: ~8.2 us on the whole card at
+// 3.7e11 a second), and its 16 x 8 output tiles (24 at the bench shape)
+// compute 3072 products a row where 2250 are needed (9.3 us at the peak),
+// each operand an f32 load and an f32 -> f64 conversion.  The sincos run
+// on the f64 FMA pipe and the products on the tensor cores, so the design
+// overlaps the two:
+//   pass 1: block (bx, by) of 12 warps walks a contiguous run of 64-row
+//     chunks with a ring of two shared slots, each holding the chunk's
+//     f32 tiles Tw = f32(T * w) (64 x kb, formed once as it is staged)
+//     and [T | 0 | X | 0] (64 x q_pad), widened when loaded as an MMA
+//     operand (36.9 KB a slot at the bench shape, 2 blocks = 24 warps per
+//     SM).  In each step every warp stages its share of chunk c + 1 into
+//     one slot (6 threads a row, each rounding the row's t and w once) and
+//     runs its MMA tiles over chunk c in the other; odd warps do the MMA
+//     first and even warps the staging first, so the SM's schedulers hold
+//     both kinds of instruction at once.  One __syncthreads a chunk.  A
+//     fixed split into producer and consumer warps was not taken: the
+//     register file allows ~24 warps per SM (at 18 warps a block ptxas
+//     cannot place the f64 MMA in the 56 registers left), and the
+//     latency-bound sincos chains need most of them in flight, while the
+//     MMA needs few; here every warp does both.  Each warp owns a run of
+//     at most 2 output tiles of 16 x 8 over the upper block triangle (by
+//     picks a group of 24 tiles; one group covers k <= 30 with p <= 8) and
+//     keeps their sums in registers; its MMA is m16n8k16 (a quarter of
+//     m16n8k4's instructions for the same products).  The block writes
+//     its f64 partial tiles to scratch, a warp's 128 doubles of a tile
+//     contiguous.  t, w and X are read by plain loads in the staging (9
+//     doubles a row).
+//   pass 2: a block of 8 warps takes 32 consecutive partial elements, one
+//     per lane, so a warp's loads are 256 contiguous bytes; warp w sums
+//     blocks w, w + 8, ... and the block adds the 8 sums in order.
+// ptxas on the H100 (chip_smoke.py's build log): pass 1 79 registers
+// (the cap of 2 blocks of 384 threads is 80), no spills, a 40-byte stack
+// frame (libdevice sincos' large-argument branch), 74 KB of dynamic
+// shared memory at the bench shape; pass 2 30 registers, 2 KB.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define SUB 128
-#define TILE 8        // output tiles are 8 x 8 (the MMA's m and n)
-#define WARPS 8       // warps per pass-1 block
-#define MAXT 8        // most output tiles one warp owns
+#include "fourier_basis.cuh"
+
+#define SUB 64        // rows per chunk
+#define TROWS 16      // output tiles are 16 x 8 (the MMA's m and n)
+#define TCOLS 8
+#define TELEMS (TROWS * TCOLS)
+#define WARPS 12      // warps per pass-1 block
+#define THREADS (WARPS * 32)
+#define MAXT 2        // most output tiles one warp owns
 #define K_MAX 64      // most harmonics
+#define P2_WARPS 8    // warps per pass-2 block
+#define TPR (THREADS / SUB)  // staging threads a row
 
-// Row stride of the shared tile, in doubles: a multiple of 8 that is 8
-// mod 16, so a warp's MMA operand load (4 rows x 8 consecutive doubles)
-// touches every bank pair exactly twice.
-__host__ __device__ inline int row_stride(int q_pad) {
-  return q_pad % 16 == 0 ? q_pad + 8 : q_pad;
+// bytes of one ring slot: Tw (SUB x row stride of kb), then [T | X]
+// (SUB x row stride of q_pad), both f32
+__host__ __device__ inline int slot_bytes(int kb, int q_pad) {
+  return SUB * (fourier_mma_stride(kb) + fourier_mma_stride(q_pad)) *
+         (int)sizeof(float);
 }
 
-__host__ __device__ inline size_t pass1_smem(int q_pad) {
-  return (size_t)SUB * row_stride(q_pad) * sizeof(double) +
-         (2 * SUB + K_MAX) * sizeof(float);
+inline size_t pass1_smem(int kb, int q_pad) {
+  return 2 * (size_t)slot_bytes(kb, q_pad) + K_MAX * sizeof(float);
 }
 
-// d += a * b for one 8 x 8 x 4 f64 MMA fragment (PTX ISA fragment layout:
-// a = A[lane/4][lane%4], b = B[lane%4][lane/4], d = D[lane/4][2(lane%4)+i]).
-__device__ __forceinline__ void mma_f64(double& d0, double& d1, double a,
-                                        double b) {
-  asm volatile(
-      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
-      "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
-      : "+d"(d0), "+d"(d1)
-      : "d"(a), "d"(b));
-}
-
-__global__ void gram_pass1(const double* __restrict__ t,
-                           const double* __restrict__ freqs,
-                           const double* __restrict__ w,
-                           const double* __restrict__ X, int n, int k,
-                           int p, int kb, int q_pad, int nchunks,
-                           int ntiles, double* __restrict__ partial) {
-  extern __shared__ double2 smem2[];
-  const int S = row_stride(q_pad);
-  double* ys = reinterpret_cast<double*>(smem2);       // SUB x S
-  float* ts = reinterpret_cast<float*>(ys + SUB * S);  // SUB f32 times
-  float* ws = ts + SUB;                                // SUB f32 weights
-  float* fw = ws + SUB;                                // k of f32(2 pi) f_j
-
-  const int k2 = 2 * k;
-  const int nt = q_pad / TILE;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-
-  // this block's group of tiles, and this warp's contiguous run of it;
-  // tiles run row-major over the block triangle, row I holding the
-  // column tiles J = I .. nt - 1
-  const int tile0 = blockIdx.y * (WARPS * MAXT);
-  const int count = min(WARPS * MAXT, ntiles - tile0);
-  const int per = (count + WARPS - 1) / WARPS;
-  const int first = tile0 + warp * per;
-  const int mine = max(0, min(per, tile0 + count - first));
+// One pass-1 block: its ring of two chunk slots in shared memory, and
+// this warp's output tiles with their sums.  gram_pass1 runs it; its
+// halves, staging and MMA, are also run alone to time them
+// (profiling/fourier_gram_split.cu).
+struct GramBlock {
+  char* ring;
+  float* fw;  // f32(2 pi) f_j
+  const double* t;
+  const double* w;
+  const double* X;
+  int n, k, p, kb, SW, SQ, slot;
+  int tid, warp, g, t4, first, mine;
   int tI[MAXT], tJ[MAXT];
+  double acc[MAXT][4];
+
+  // Sets up the block and writes fw and the pad columns of both slots;
+  // the caller syncs before staging.
+  __device__ __forceinline__ GramBlock(void* smem, const double* t_,
+                                       const double* freqs,
+                                       const double* w_, const double* X_,
+                                       int n_, int k_, int p_, int kb_,
+                                       int q_pad, int ntiles)
+      : ring(static_cast<char*>(smem)), t(t_), w(w_), X(X_), n(n_), k(k_),
+        p(p_), kb(kb_), SW(fourier_mma_stride(kb_)),
+        SQ(fourier_mma_stride(q_pad)), slot(slot_bytes(kb_, q_pad)),
+        tid(threadIdx.x), warp(threadIdx.x >> 5),
+        g((threadIdx.x & 31) >> 2), t4(threadIdx.x & 3) {
+    fw = reinterpret_cast<float*>(ring + 2 * slot);
+    // this block's group of tiles, and this warp's contiguous run of it;
+    // tiles run row-major over the block triangle, row I (basis columns
+    // 16 I .. 16 I + 15) holding the column tiles J = 2 I .. nt - 1
+    const int nt = q_pad / TCOLS;
+    const int tile0 = blockIdx.y * (WARPS * MAXT);
+    const int count = min(WARPS * MAXT, ntiles - tile0);
+    const int per = (count + WARPS - 1) / WARPS;
+    first = tile0 + warp * per;
+    mine = max(0, min(per, tile0 + count - first));
 #pragma unroll
-  for (int j = 0; j < MAXT; ++j) {
-    int tt = first + j, I = 0, row = nt;
-    while (row > 0 && tt >= row) {
-      tt -= row;
-      ++I;
-      --row;
+    for (int j = 0; j < MAXT; ++j) {
+      int tt = first + j, I = 0, row = nt;
+      while (row > 0 && tt >= row) {
+        tt -= row;
+        ++I;
+        row -= 2;
+      }
+      tI[j] = I;
+      tJ[j] = 2 * I + tt;
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0;
     }
-    tI[j] = I;
-    tJ[j] = I + tt;
+
+    for (int j = tid; j < k; j += THREADS) fw[j] = fourier_omega(freqs[j]);
+    // the pad columns of both slots: Tw's [2k, SW), [T | X]'s [2k, kb)
+    // and [kb + p, SQ)
+    for (int idx = tid; idx < 2 * SUB; idx += THREADS) {
+      float* tw = tw_of(idx / SUB) + (idx % SUB) * SW;
+      float* tx = tx_of(idx / SUB) + (idx % SUB) * SQ;
+      for (int c = 2 * k; c < SW; ++c) tw[c] = 0.0f;
+      for (int c = 2 * k; c < kb; ++c) tx[c] = 0.0f;
+      for (int c = kb + p; c < SQ; ++c) tx[c] = 0.0f;
+    }
   }
-  double acc[MAXT][2];
-#pragma unroll
-  for (int j = 0; j < MAXT; ++j) acc[j][0] = acc[j][1] = 0.0;
 
-  const float two_pi = (float)6.283185307179586;  // f32(2 pi)
-  for (int j = tid; j < k; j += blockDim.x)
-    fw[j] = __fmul_rn(two_pi, (float)freqs[j]);
+  // slot s's Tw and [T | X] tiles
+  __device__ __forceinline__ float* tw_of(int s) const {
+    return reinterpret_cast<float*>(ring + s * slot);
+  }
+  __device__ __forceinline__ float* tx_of(int s) const {
+    return reinterpret_cast<float*>(ring + s * slot) + SUB * SW;
+  }
 
-  const long c0 = (long)nchunks * blockIdx.x / gridDim.x;
-  const long c1 = (long)nchunks * (blockIdx.x + 1) / gridDim.x;
-  for (long c = c0; c < c1; ++c) {
+  // chunk c into slot s: sin in column j, cos in column k + j, rows past
+  // n zero; X rounded to f32 after the basis' kb columns.  TPR threads
+  // share a row, so each rounds its row's t and w to f32 once.
+  __device__ __forceinline__ void stage(long c, int s) {
+    float* tw = tw_of(s);
+    float* tx = tx_of(s);
     const long r0 = c * SUB;
     const int rows = (long)n - r0 < SUB ? (int)((long)n - r0) : SUB;
-    __syncthreads();  // the previous chunk's reads (and fw) are done
-    for (int r = tid; r < SUB; r += blockDim.x) {
-      ts[r] = r < rows ? (float)t[r0 + r] : 0.0f;
-      ws[r] = r < rows ? (float)w[r0 + r] : 0.0f;
+    const int r = tid / TPR;
+    const bool live = r < rows;
+    const float tr = live ? (float)t[r0 + r] : 0.0f;
+    const float wr = live ? (float)w[r0 + r] : 0.0f;
+    for (int j = tid - r * TPR; j < k; j += TPR) {
+      const float2 sc =
+          live ? fourier_pair(fw[j], tr) : make_float2(0.0f, 0.0f);
+      tx[r * SQ + j] = sc.x;
+      tx[r * SQ + k + j] = sc.y;
+      tw[r * SW + j] = __fmul_rn(sc.x, wr);
+      tw[r * SW + k + j] = __fmul_rn(sc.y, wr);
     }
-    __syncthreads();
-    // the basis, generated: sin in column j, cos in column k + j
-    for (int idx = tid; idx < rows * k; idx += blockDim.x) {
-      const int r = idx / k, j = idx - r * k;
-      double s, co;
-      sincos((double)__fmul_rn(fw[j], ts[r]), &s, &co);
-      ys[r * S + j] = (double)(float)s;  // f32 values, stored widened
-      ys[r * S + k + j] = (double)(float)co;
-    }
-    const int padb = kb - k2;
-    for (int idx = tid; idx < rows * padb; idx += blockDim.x) {
-      const int r = idx / padb;
-      ys[r * S + k2 + (idx - r * padb)] = 0.0;
-    }
-    // X rounded to f32, then its pad columns
     const double* Xc = X + r0 * p;
-    for (int idx = tid; idx < rows * p; idx += blockDim.x) {
-      const int r = idx / p;
-      ys[r * S + kb + (idx - r * p)] = (double)(float)Xc[idx];
+    for (int idx = tid; idx < SUB * p; idx += THREADS) {
+      const int rx = idx / p;
+      tx[rx * SQ + kb + (idx - rx * p)] = rx < rows ? (float)Xc[idx] : 0.0f;
     }
-    const int padx = q_pad - kb - p;
-    for (int idx = tid; idx < rows * padx; idx += blockDim.x) {
-      const int r = idx / padx;
-      ys[r * S + kb + p + (idx - r * padx)] = 0.0;
-    }
-    for (int idx = rows * S + tid; idx < SUB * S; idx += blockDim.x)
-      ys[idx] = 0.0;
-    __syncthreads();
+  }
 
-    for (int r = 0; r < SUB; r += 4) {
-      const double* yr = ys + (r + t4) * S + g;
-      const float wr = ws[r + t4];
-      double a = 0.0;
+  // this warp's tiles over the chunk in slot s, 16 rows an MMA
+  __device__ __forceinline__ void contract(int s) {
+    const float* tw = tw_of(s);
+    const float* tx = tx_of(s);
+    for (int r = 0; r < SUB; r += 16) {
+      const float* ar = tw + (r + t4) * SW + g;
+      const float* br = tx + (r + t4) * SQ + g;
+      double a[8];
 #pragma unroll
       for (int j = 0; j < MAXT; ++j) {
         if (j < mine) {  // uniform across the warp
-          if (j == 0 || tI[j] != tI[j - 1])
-            a = (double)__fmul_rn((float)yr[tI[j] * TILE], wr);  // f32(T * w)
-          mma_f64(acc[j][0], acc[j][1], a, yr[tJ[j] * TILE]);
+          if (j == 0 || tI[j] != tI[j - 1]) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              a[i] = (double)ar[4 * (i / 2) * SW + tI[j] * TROWS + 8 * (i % 2)];
+          }
+          double b[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            b[i] = (double)br[4 * i * SQ + tJ[j] * TCOLS];
+          fourier_mma_k16(acc[j], a, b);
         }
       }
     }
   }
 
-  // D[g][2 t4 + i] of each tile -> partial[block][tile][g * 8 + 2 t4 + i]
+  // D[g + 8 h][2 t4 + i] of each tile -> partial[block][tile][row * 8 +
+  // column]: a warp writes a tile's 128 doubles contiguously
+  __device__ __forceinline__ void store(double* partial, int ntiles) const {
 #pragma unroll
-  for (int j = 0; j < MAXT; ++j) {
-    if (j < mine) {
-      double* out = partial + ((long)blockIdx.x * ntiles + first + j) *
-                                  (TILE * TILE) + g * TILE + 2 * t4;
-      out[0] = acc[j][0];
-      out[1] = acc[j][1];
+    for (int j = 0; j < MAXT; ++j) {
+      if (j < mine) {
+        double* out = partial +
+                      ((long)blockIdx.x * ntiles + first + j) * TELEMS +
+                      g * TCOLS + 2 * t4;
+        out[0] = acc[j][0];
+        out[1] = acc[j][1];
+        out[8 * TCOLS] = acc[j][2];
+        out[8 * TCOLS + 1] = acc[j][3];
+      }
     }
+  }
+};
+
+// this block's contiguous run [c0, c0 + count) of the n's 64-row chunks
+__device__ __forceinline__ long chunk_first(int nchunks) {
+  return (long)nchunks * blockIdx.x / gridDim.x;
+}
+__device__ __forceinline__ int chunk_count(int nchunks) {
+  return (int)((long)nchunks * (blockIdx.x + 1) / gridDim.x -
+               chunk_first(nchunks));
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+    gram_pass1(const double* __restrict__ t, const double* __restrict__ freqs,
+               const double* __restrict__ w, const double* __restrict__ X,
+               int n, int k, int p, int kb, int q_pad, int nchunks,
+               int ntiles, double* __restrict__ partial) {
+  extern __shared__ double smem[];
+  GramBlock b(smem, t, freqs, w, X, n, k, p, kb, q_pad, ntiles);
+  __syncthreads();
+  const long c0 = chunk_first(nchunks);
+  const int nits = chunk_count(nchunks);
+  b.stage(c0, 0);
+  __syncthreads();
+  const bool mma_first = b.warp & 1;
+  for (int it = 0; it < nits; ++it) {
+    const int cur = it & 1;
+    if (mma_first) b.contract(cur);
+    if (it + 1 < nits) b.stage(c0 + it + 1, cur ^ 1);
+    if (!mma_first) b.contract(cur);
+    __syncthreads();  // slot cur is free, slot cur ^ 1 is staged
+  }
+  b.store(partial, ntiles);
+}
+
+// One lane per partial element (tile, e), 32 consecutive elements a
+// block: warp w sums blocks w, w + 8, ... (contiguous 256-byte loads
+// across the warp), then the block adds the 8 warp sums in order and
+// scatters each element to Sigma (both triangles) or TWX.  Sigma(i, j)
+// and Sigma(j, i) are the same upper-triangle element, so Sigma is exactly
+// symmetric.
+__global__ void __launch_bounds__(P2_WARPS * 32)
+    gram_pass2(const double* __restrict__ partial, int nb, int k, int p,
+               int kb, int q_pad, int ntiles, double* __restrict__ sig,
+               double* __restrict__ twx) {
+  __shared__ double red[P2_WARPS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int npe = ntiles * TELEMS;
+  const int pe = blockIdx.x * 32 + lane;
+  double s = 0.0;
+  if (pe < npe) {
+#pragma unroll 4
+    for (int b = warp; b < nb; b += P2_WARPS) s += partial[(long)b * npe + pe];
+  }
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp != 0 || pe >= npe) return;
+  double tot = red[0][lane];
+#pragma unroll
+  for (int v = 1; v < P2_WARPS; ++v) tot += red[v][lane];
+  const int nt = q_pad / TCOLS;
+  int tt = pe / TELEMS, I = 0, row = nt;
+  while (tt >= row) {
+    tt -= row;
+    ++I;
+    row -= 2;
+  }
+  const int e = pe % TELEMS;
+  const int k2 = 2 * k;
+  const int a = I * TROWS + e / TCOLS, c = (2 * I + tt) * TCOLS + e % TCOLS;
+  if (a >= k2) return;  // a pad row of the basis
+  if (c < kb) {
+    if (c < k2 && a <= c) sig[a * k2 + c] = sig[c * k2 + a] = tot;
+  } else if (c - kb < p) {
+    twx[a * p + (c - kb)] = tot;
   }
 }
 
-// One warp per output element of Sigma (2k x 2k) and TWX (2k x p): lanes
-// stride over the block partials, then a fixed shuffle tree adds the 32
-// lane sums.  Sigma(i, j) and Sigma(j, i) read the same upper-triangle
-// element, so Sigma is exactly symmetric.
-__global__ void gram_pass2(const double* __restrict__ partial, int nb,
-                           int k, int p, int kb, int q_pad,
-                           double* __restrict__ sig,
-                           double* __restrict__ twx) {
-  const int k2 = 2 * k, wide = k2 + p;
-  const int elem = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (elem >= k2 * wide) return;  // uniform across the warp
-  const int i = elem / wide, j = elem - i * wide;
-  // (row, column) in the padded tile space: rows are basis columns,
-  // columns are [basis | pad | X | pad]
-  const int a = j < k2 ? min(i, j) : i;
-  const int c = j < k2 ? max(i, j) : kb + (j - k2);
-  const int nt = q_pad / TILE;
-  const int nbt = kb / TILE;
-  const int ntiles = nbt * nt - nbt * (nbt - 1) / 2;
-  const int I = a / TILE, J = c / TILE;
-  const int tile = I * nt - I * (I - 1) / 2 + (J - I);
-  const int e = (a % TILE) * TILE + (c % TILE);
-  double s = 0.0;
-  for (int b = lane; b < nb; b += 32)
-    s += partial[((long)b * ntiles + tile) * (TILE * TILE) + e];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    s += __shfl_down_sync(0xffffffffu, s, off);
-  if (lane != 0) return;
-  if (j < k2)
-    sig[i * k2 + j] = s;
-  else
-    twx[i * p + (j - k2)] = s;
+static int check_shape(int n, int k, int p, int kb, int q_pad, int nb,
+                       int ny, int threads, int* ntiles) {
+  const int nt = q_pad / TCOLS, nbt = kb / TROWS;
+  *ntiles = nbt * nt - nbt * (nbt - 1);
+  return threads == THREADS && k >= 1 && k <= K_MAX && p >= 1 &&
+         kb % TROWS == 0 && kb >= 2 * k && q_pad % TCOLS == 0 &&
+         q_pad >= kb + p && ny * WARPS * MAXT >= *ntiles && nb >= 1 &&
+         n >= 1;
 }
 
 // C entry: launches both passes on `stream` and returns cudaGetLastError().
-// The caller allocates `partial` (nb * ntiles * 64 f64) and the outputs,
+// The caller allocates `partial` (nb * ntiles * 128 f64) and the outputs,
 // and checks shapes, types and contiguity against ops/fourier.py's
 // fourier_gram_table, which this re-checks.
 extern "C" int fourier_gram_launch(const double* t, const double* freqs,
@@ -242,26 +330,22 @@ extern "C" int fourier_gram_launch(const double* t, const double* freqs,
                                    int ny, int threads, double* partial,
                                    double* sig, double* twx, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nt = q_pad / TILE, nbt = kb / TILE;
-  const int ntiles = nbt * nt - nbt * (nbt - 1) / 2;
-  if (threads != WARPS * 32 || k < 1 || k > K_MAX || p < 1 ||
-      kb % TILE != 0 || kb < 2 * k || q_pad % TILE != 0 || q_pad < kb + p ||
-      ny * WARPS * MAXT < ntiles || nb < 1 || n < 1)
+  int ntiles;
+  if (!check_shape(n, k, p, kb, q_pad, nb, ny, threads, &ntiles))
     return (int)cudaErrorInvalidValue;  // outside the kernel's design
-  const size_t smem = pass1_smem(q_pad);
+  const size_t smem = pass1_smem(kb, q_pad);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         gram_pass1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int nchunks = (n + SUB - 1) / SUB;
-  gram_pass1<<<dim3(nb, ny), threads, smem, s>>>(
-      t, freqs, w, X, n, k, p, kb, q_pad, nchunks, ntiles, partial);
+  gram_pass1<<<dim3(nb, ny), THREADS, smem, s>>>(
+      t, freqs, w, X, n, k, p, kb, q_pad, (n + SUB - 1) / SUB, ntiles,
+      partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int elems = 2 * k * (2 * k + p);
-  const int t2 = 256;  // 8 warps, one output element each
-  gram_pass2<<<(elems * 32 + t2 - 1) / t2, t2, 0, s>>>(
-      partial, nb, k, p, kb, q_pad, sig, twx);
+  const int blocks = (ntiles * TELEMS + 31) / 32;
+  gram_pass2<<<blocks, P2_WARPS * 32, 0, s>>>(partial, nb, k, p, kb, q_pad,
+                                              ntiles, sig, twx);
   return (int)cudaGetLastError();
 }

@@ -2,8 +2,9 @@
 
 Each ``pint_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled, at first use, into ``pint_tpu_torch/_build/`` as a shared
-library named after the source's content hash, so an edited source never
-loads a stale build.  :func:`build_libraries` starts one nvcc per missing
+library named after a hash of the source and of every header in
+``csrc/`` (``*.cuh``), so an edited source or header never loads a stale
+build.  :func:`build_libraries` starts one nvcc per missing
 library, all at once, and waits for them; :func:`c_entry` binds a
 library's C entry.  Nothing here runs at import.
 """
@@ -43,9 +44,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD / f"lib{name}-{digest}.so"
+    """The build of ``csrc/<name>.cu``, named after the hash of the source
+    and of every ``csrc/*.cuh`` (any of them may be included)."""
+    h = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_libraries(names) -> dict[str, Path]:

@@ -30,7 +30,8 @@ Each function comes three ways, as ``ops/fused_gram.py``:
 - ``*_plain``: the same function in plain torch (the CPU route, and the
   yardstick the kernel is held to on the card);
 - ``*_cuda``: launches ``csrc/fourier_gram.cu`` / ``csrc/fourier_apply.cu``
-  and counts its launches in ``*_cuda.launches``;
+  (both generate the basis by ``csrc/fourier_basis.cuh``) and counts its
+  launches in ``*_cuda.launches``;
 - the dispatcher: the plain version for CPU tensors, the kernel for CUDA
   tensors, no fallback between them.
 
@@ -56,22 +57,24 @@ F64 = torch.float64
 
 #: 2 pi, rounded to f32 where it meets the f32 frequencies
 TWO_PI = 2.0 * math.pi
-#: rows per staged chunk of fourier_gram
-SUB = 128
-#: side of the kernel's output tiles (the f64 MMA's m and n)
+#: rows per staged chunk of fourier_gram (a slot of its shared ring)
+SUB = 64
+#: fourier_gram's output tiles: 16 x 8, the f64 MMA m16n8k16's m and n
+TILE_ROWS = 16
 TILE = 8
 #: most pass-1 blocks along n: a constant, so the reduction order (and so
 #: every bit of the result) depends on n alone
 NB_MAX = 264
-#: threads per fourier_gram pass-1 block (8 warps of at most 8 tiles)
-THREADS = 256
-TILES_PER_BLOCK = 64
+#: threads per fourier_gram pass-1 block (12 warps of at most 2 tiles)
+THREADS = 384
+TILES_PER_BLOCK = 24
 #: widest shapes the kernels take
 K_MAX = 64
 P_MAX = 16
 M_MAX = 16
-#: threads per fourier_apply block (one TOA row each)
-APPLY_THREADS = 128
+#: fourier_apply: rows and threads per block
+APPLY_ROWS = 128
+APPLY_THREADS = 256
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -85,21 +88,22 @@ def fourier_gram_table(n: int, k: int, p: int):
     q_pad padded columns, ntiles, threads per block)."""
     if n < 1 or not 1 <= k <= K_MAX or not 1 <= p <= P_MAX:
         return None
-    kb = _ceil_to(2 * k, TILE)
+    kb = _ceil_to(2 * k, TILE_ROWS)
     q_pad = kb + _ceil_to(p, TILE)
-    nbt, nt = kb // TILE, q_pad // TILE
-    ntiles = nbt * nt - nbt * (nbt - 1) // 2
+    nbt, nt = kb // TILE_ROWS, q_pad // TILE
+    ntiles = nbt * nt - nbt * (nbt - 1)  # row I holds tiles 2I .. nt - 1
     ny = -(-ntiles // TILES_PER_BLOCK)
     nb = min(-(-n // SUB), NB_MAX)
     return nb, ny, kb, q_pad, ntiles, THREADS
 
 
 def fourier_apply_table(n: int, k: int, m: int):
-    """Launch geometry of fourier_apply: (blocks, threads per block), or
-    None when the shape is outside the kernel's design."""
+    """Launch geometry of fourier_apply: (blocks of APPLY_ROWS rows,
+    threads per block), or None when the shape is outside the kernel's
+    design."""
     if n < 1 or not 1 <= k <= K_MAX or not 1 <= m <= M_MAX:
         return None
-    return -(-n // APPLY_THREADS), APPLY_THREADS
+    return -(-n // APPLY_ROWS), APPLY_THREADS
 
 
 def basis32(t, freqs):
@@ -114,7 +118,7 @@ def basis32(t, freqs):
 def fourier_gram_plain(t, freqs, w, X, precision: str = "highest"):
     """The kernel's function in plain torch: the f32 basis, its rows
     weighted in f32, and the products of f32 values summed in f64 over
-    128-row chunks (``ops/fused_gram.py::fused_gram_joint_plain``)."""
+    SUB-row chunks (``ops/fused_gram.py::fused_gram_joint_plain``)."""
     check_precision("fourier_gram", precision)
     T = basis32(t, freqs)
     k2 = T.shape[1]
@@ -141,9 +145,10 @@ def fourier_apply_plain(t, freqs, z, precision: str = "highest"):
 
 
 def _check_card(name, tensors, dims):
-    dev = tensors[0].device
-    if dev.type != "cuda" or any(a.device != dev for a in tensors):
+    index = tensors[0].get_device()  # -1 on the CPU
+    if index < 0 or any(a.get_device() != index for a in tensors):
         raise ValueError(f"{name}: the inputs must lie on one card")
+    dev = tensors[0].device
     for a, d in zip(tensors, dims):
         if a.dtype != F64 or a.dim() != d or not a.is_contiguous():
             raise ValueError(
@@ -151,6 +156,23 @@ def _check_card(name, tensors, dims):
                 f"got {[(x.dtype, tuple(x.shape)) for x in tensors]}"
             )
     return dev
+
+
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
+#: the C entries' ctypes signatures: pointers and the stream as c_void_p
+_GRAM_ARGS = [_VP] * 4 + [_INT] * 8 + [_VP] * 4
+_APPLY_ARGS = [_VP] * 3 + [_INT] * 5 + [_VP] * 2
+
+
+def _launch(dev, entry, *args):
+    """Call a C entry on ``dev``'s current stream and return its
+    cudaError code; the current device is switched only when it
+    differs."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index == torch.cuda.current_device():
+        return entry(*args, stream)
+    with torch.cuda.device(dev):
+        return entry(*args, stream)
 
 
 def _gram_shape(t, freqs, w, X):
@@ -188,19 +210,14 @@ def fourier_gram_cuda(t, freqs, w, X, precision: str = "highest"):
     check_precision("fourier_gram", precision)
     dev = _check_card("fourier_gram_cuda", (t, freqs, w, X), (1, 1, 1, 2))
     n, k, p, (nb, ny, kb, q_pad, ntiles, threads) = _gram_shape(t, freqs, w, X)
-    partial = torch.empty(nb * ntiles * TILE * TILE, dtype=F64, device=dev)
+    partial = torch.empty(nb * ntiles * TILE_ROWS * TILE, dtype=F64,
+                          device=dev)
     sig = torch.empty((2 * k, 2 * k), dtype=F64, device=dev)
     twx = torch.empty((2 * k, p), dtype=F64, device=dev)
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    launch = c_entry("fourier_gram", [vp, vp, vp, vp, i, i, i, i, i, i, i, i,
-                                   vp, vp, vp, vp])
-    with torch.cuda.device(dev):
-        err = launch(
-            t.data_ptr(), freqs.data_ptr(), w.data_ptr(), X.data_ptr(),
-            n, k, p, kb, q_pad, nb, ny, threads, partial.data_ptr(),
-            sig.data_ptr(), twx.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    launch = c_entry("fourier_gram", _GRAM_ARGS)
+    err = _launch(dev, launch, t.data_ptr(), freqs.data_ptr(), w.data_ptr(),
+                  X.data_ptr(), n, k, p, kb, q_pad, nb, ny, threads,
+                  partial.data_ptr(), sig.data_ptr(), twx.data_ptr())
     if err != 0:
         raise RuntimeError(
             f"fourier_gram kernel launch failed: cudaError {err}"
@@ -218,13 +235,9 @@ def fourier_apply_cuda(t, freqs, z, precision: str = "highest"):
     dev = _check_card("fourier_apply_cuda", (t, freqs, z), (1, 1, 2))
     n, k, m, (blocks, threads) = _apply_shape(t, freqs, z)
     y = torch.empty((n, m), dtype=F32, device=dev)
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    launch = c_entry("fourier_apply", [vp, vp, vp, i, i, i, i, i, vp, vp])
-    with torch.cuda.device(dev):
-        err = launch(
-            t.data_ptr(), freqs.data_ptr(), z.data_ptr(), n, k, m, blocks,
-            threads, y.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
+    launch = c_entry("fourier_apply", _APPLY_ARGS)
+    err = _launch(dev, launch, t.data_ptr(), freqs.data_ptr(), z.data_ptr(),
+                  n, k, m, blocks, threads, y.data_ptr())
     if err != 0:
         raise RuntimeError(
             f"fourier_apply kernel launch failed: cudaError {err}"

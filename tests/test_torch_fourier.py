@@ -12,6 +12,7 @@ kernels to those plain versions on the card.
 
 import json
 import math
+import shutil
 import sys
 import textwrap
 import warnings
@@ -238,12 +239,14 @@ def test_fourier_gram_weights_zero_padding():
 def test_fourier_shape_table_and_refusals():
     """The shape table takes k <= 64 and p, m <= 16; any other shape, and
     the unported precision rungs, raise before any launch."""
-    assert fourier.fourier_gram_table(100_000, 30, 7)[:5] == (
-        264, 1, 64, 72, 44)
-    assert fourier.fourier_gram_table(10, 64, 16)[1] == 3
+    assert fourier.fourier_gram_table(100_000, 30, 7) == (
+        264, 1, 64, 72, 24, 384)
+    assert fourier.fourier_gram_table(1000, 5, 3)[0] == 16  # ceil(n / 64)
+    assert fourier.fourier_gram_table(10, 64, 16)[1:5] == (4, 128, 144, 88)
     assert fourier.fourier_gram_table(10, 65, 7) is None
     assert fourier.fourier_gram_table(10, 30, 17) is None
-    assert fourier.fourier_apply_table(1000, 64, 16) == (8, 128)
+    assert fourier.fourier_apply_table(1000, 64, 16) == (8, 256)
+    assert fourier.fourier_apply_table(100_000, 30, 8) == (782, 256)
     assert fourier.fourier_apply_table(1000, 12, 17) is None
     t = torch.linspace(0.0, 1e8, 50, dtype=torch.float64)
     f = torch.arange(1, 66, dtype=torch.float64) / 1e8
@@ -260,6 +263,49 @@ def test_fourier_shape_table_and_refusals():
     with pytest.raises(ValueError, match="one card"):
         fourier.fourier_gram_cuda(t, f[:4], w,
                                   torch.ones((50, 3), dtype=torch.float64))
+
+
+def _identity_blocks(k2):
+    """The 2k x 2k identity cut into blocks of at most M_MAX columns:
+    (first column, block)."""
+    eye = torch.eye(k2, dtype=torch.float64)
+    return [(c, eye[:, c:c + fourier.M_MAX].contiguous())
+            for c in range(0, k2, fourier.M_MAX)]
+
+
+@pytest.mark.parametrize("n,k", [(3000, 30), (999, 7), (64, 64)])
+def test_fourier_apply_plain_identity_is_basis32(n, k):
+    """The plain side of chip_smoke.py's basis check: fourier_apply_plain
+    with z a block of identity columns is the matching columns of
+    basis32, bit for bit (each output is one product by 1.0 plus exact
+    zeros)."""
+    rng = np.random.default_rng(4)
+    tspan = 3.89e8
+    t = _t(np.sort(rng.uniform(0, tspan, n)))
+    f = _t(np.arange(1, k + 1) / tspan)
+    T = fourier.basis32(t, f)
+    for c, Z in _identity_blocks(2 * k):
+        assert torch.equal(fourier.fourier_apply(t, f, Z),
+                           T[:, c:c + Z.shape[1]])
+
+
+def test_library_path_hashes_the_headers(tmp_path, monkeypatch):
+    """An edit to a shared header (csrc/*.cuh) names a new build of every
+    kernel, so a stale library is never loaded; needs no nvcc."""
+    from pint_tpu_torch.ops import _cuda_build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_cuda_build.CSRC, csrc)
+    monkeypatch.setattr(_cuda_build, "CSRC", csrc)
+    monkeypatch.setattr(_cuda_build, "BUILD", tmp_path / "_build")
+    before = {n: _cuda_build.library_path(n)
+              for n in ("fourier_gram", "fourier_apply", "fused_gram_joint")}
+    assert all(p.parent == tmp_path / "_build" for p in before.values())
+    header = csrc / "fourier_basis.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _cuda_build.library_path(n) for n in before}
+    assert all(after[n] != before[n] for n in before)
+    assert _cuda_build.library_path("fourier_gram") == after["fourier_gram"]
 
 
 # -- the step --------------------------------------------------------------
@@ -462,7 +508,7 @@ def _gram_case(n, k, p, dev, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,k,p", [(100_000, 30, 7), (1000, 5, 3),
-                                   (4099, 64, 16)])
+                                   (4099, 64, 16), (100_000, 64, 16)])
 def test_fourier_gram_kernel_matches_plain_on_card(n, k, p):
     """The CUDA kernel against its plain version on the same card
     tensors: 3e-6 of scale, and bitwise equal to itself on a rerun."""
@@ -478,7 +524,7 @@ def test_fourier_gram_kernel_matches_plain_on_card(n, k, p):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,k,m", [(100_000, 30, 1), (100_000, 30, 8),
-                                   (1001, 7, 3)])
+                                   (1001, 7, 3), (100_000, 64, 16)])
 def test_fourier_apply_kernel_matches_plain_on_card(n, k, m):
     """As above for fourier_apply (f32 output)."""
     t, f, _, _ = _gram_case(n, k, 1, _card())
@@ -490,6 +536,19 @@ def test_fourier_apply_kernel_matches_plain_on_card(n, k, m):
     assert torch.equal(got, again)
     scale = float(torch.max(torch.abs(want)))
     assert float(torch.max(torch.abs(got - want))) <= 3e-6 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", [(100_000, 30), (999, 7), (4099, 64)])
+def test_kernel_basis_is_basis32_on_card(n, k):
+    """The generated basis (csrc/fourier_basis.cuh, shared by both
+    kernels) bit for bit: fourier_apply_cuda with z a block of identity
+    columns equals the matching columns of basis32 on the card."""
+    t, f, _, _ = _gram_case(n, k, 1, _card())
+    T = fourier.basis32(t, f)
+    for c, Z in _identity_blocks(2 * k):
+        got = fourier.fourier_apply_cuda(t, f, Z.to(t.device))
+        assert torch.equal(got, T[:, c:c + Z.shape[1]]), c
 
 
 @pytest.mark.gpu
