@@ -34,7 +34,9 @@ Phases, each of which raises on failure (exit code != 0):
 4. each kernel against its plain PyTorch version on the card, at the
    paths' shapes, at an odd shape and at the widest shapes of the tables
    (k = 64 with p = 16, and with m = 16): 3e-6 of scale, bitwise on
-   rerun; and the generated basis bit for bit: ``fourier_apply`` with z
+   rerun; ``fused_gram_joint`` also with T in f32, at k = 1 with one and
+   two chunks, and at a ragged n whose last spans are not whole 16-byte
+   units (T in f64 and f32); and the generated basis bit for bit: ``fourier_apply`` with z
    each block of at most 16 identity columns equals ``basis32``'s
    columns, at the bench shape and the odd shapes (the basis generator
    ``csrc/fourier_basis.cuh`` is shared, so this holds ``fourier_gram``'s
@@ -44,7 +46,7 @@ Phases, each of which raises on failure (exit code != 0):
    plain version and of its one-call library yardstick (for
    ``fourier_apply`` and its yardstick also CUDA events over 20 calls
    replayed from a CUDA graph); each kernel's bound from this run's
-   inputs; ``fourier_gram``'s two passes; host-clock times of one mixed,
+   inputs; the two Gram kernels' passes; host-clock times of one mixed,
    one f64 and one fourier step, and one mixed and one fourier step under
    torch.profiler (kernel count, busy share, top operators).
 
@@ -394,7 +396,8 @@ def main():
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if any(w in line for w in ("Function properties", "registers",
+                                       "smem", "spill")):
                 log(f"  {name}: {line.strip()}")
 
     # 2. the fit paths, counts zeroed just before each and read just after
@@ -463,10 +466,22 @@ def main():
     errs = {"fused_gram_joint": kernel_vs_plain(
         "fused_gram_joint", fused_gram.fused_gram_joint_cuda,
         fused_gram.fused_gram_joint_plain, T, A, w)}
-    kernel_vs_plain("fused_gram_joint", fused_gram.fused_gram_joint_cuda,
-                    fused_gram.fused_gram_joint_plain, odd(1000, 1),
-                    odd(1000, 3),
-                    torch.as_tensor(rng.uniform(0.0, 2.0, 1000), device=dev))
+    errs["fused_gram_joint T f32"] = kernel_vs_plain(
+        "fused_gram_joint", fused_gram.fused_gram_joint_cuda,
+        fused_gram.fused_gram_joint_plain, T.float(), A, w)
+    # the shapes the copy ring can get wrong: k = 1 (golden13's empty
+    # basis), one chunk, the widest q = 80, and a ragged n whose last T, A
+    # and w spans are not multiples of 16 bytes (T in f64 and in f32)
+    for gn, gk, gp, t32 in ((1000, 1, 3, False), (92, 1, 9, False),
+                            (n, 64, 16, False), (100_001, 61, 7, False),
+                            (100_001, 61, 7, True)):
+        gT = odd(gn, gk)
+        errs[f"fused_gram_joint {gn}x({gk}+{gp}){' T f32' if t32 else ''}"] = (
+            kernel_vs_plain(
+                "fused_gram_joint", fused_gram.fused_gram_joint_cuda,
+                fused_gram.fused_gram_joint_plain,
+                gT.float() if t32 else gT, odd(gn, gp),
+                torch.as_tensor(rng.uniform(0.0, 2.0, gn), device=dev)))
     ft, ff, fw, fX = fourier_gram_inputs(fcm, fx)
     nh, pf = ff.shape[0], fX.shape[1]
     errs["fourier_gram"] = kernel_vs_plain(
@@ -533,12 +548,14 @@ def main():
         lambda: fourier.fourier_gram_plain(ft, ff, fw, fX),
         lambda: torch.matmul(Yf.T, Yf))
     times["fourier_gram"]["basis_build_ms"] = basis_ms
-    # each pass's device time; None where the profile recorded no kernel
-    parts = times["fourier_gram"]["device_parts"]
-    for key, kname in (("pass1_device_ms", "gram_pass1"),
-                       ("pass2_device_ms", "gram_pass2")):
-        got = [v for nm, v in parts.items() if kname in nm]
-        times["fourier_gram"][key] = sum(got) if got else None
+    # each Gram kernel's passes' device time; None where the profile
+    # recorded no kernel
+    for name, prefix in (("fused_gram_joint", "fused_"), ("fourier_gram", "")):
+        parts = times[name]["device_parts"]
+        for key in ("pass1", "pass2"):
+            got = [v for nm, v in parts.items()
+                   if f"{prefix}gram_{key}" in nm]
+            times[name][f"{key}_device_ms"] = sum(got) if got else None
     nf = ft.shape[0]
     k2 = 2 * nh
     fg_fma = nf * (k2 * (k2 + 1) // 2 + k2 * pf)
@@ -588,8 +605,9 @@ def main():
             "library_device_ms": tm["library_device_ms"],
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
         })
-    rows[0].update(library_f32_ms=times["fused_gram_joint"]["library_f32_ms"],
-                   mixed_step_ms=mixed_ms, f64_step_ms=f64_ms)
+    rows[0].update({key: times["fused_gram_joint"][key] for key in (
+        "library_f32_ms", "pass1_device_ms", "pass2_device_ms")})
+    rows[0].update(mixed_step_ms=mixed_ms, f64_step_ms=f64_ms)
     rows[1].update({key: times["fourier_gram"][key] for key in (
         "basis_build_ms", "pass1_device_ms", "pass2_device_ms")})
     rows[1].update(fourier_step_ms=four_ms, fourier_vs_f64=fourier_gates)

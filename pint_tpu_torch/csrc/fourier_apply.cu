@@ -50,6 +50,7 @@
 #include <stdint.h>
 
 #include "fourier_basis.cuh"
+#include "mma_f64.cuh"
 
 #define ROWS 128     // rows per block
 #define THREADS 256  // 8 warps
@@ -125,7 +126,7 @@ __global__ void __launch_bounds__(THREADS)
     double d[4] = {0.0, 0.0, 0.0, 0.0};
     for (int kk = 0; kk < k4; kk += 4) {
       const double ak[2] = {(double)a[kk], (double)a[8 * SB + kk]};
-      fourier_mma_k4(d, ak, b + kk * mz);
+      mma_f64_k4(d, ak, b + kk * mz);
     }
     const int c = ct * 8 + 2 * t4;
 #pragma unroll

@@ -1,7 +1,7 @@
 // fourier_basis.cuh: the red-noise basis value of one (TOA row, harmonic),
 // shared by fourier_gram.cu and fourier_apply.cu, so one bitwise check of
 // either kernel's basis (chip_smoke.py's, through fourier_apply with
-// identity columns) holds both; and the f64 MMA both kernels run.
+// identity columns) holds both.
 //
 // The value is the reference's f32 basis (ops/fourier.py::basis32):
 //   arg = (f32(2 pi) * f32(f_j)) * f32(t_i)   in f32, in that order,
@@ -48,33 +48,4 @@ __device__ __forceinline__ float2 fourier_pair(float omega, float t) {
 // sets of 8 banks.
 __host__ __device__ inline int fourier_mma_stride(int cols8) {
   return cols8 % 16 == 0 ? cols8 + 8 : cols8;
-}
-
-// d += A B for one 16 x 8 x K f64 MMA: the sm_90 shapes K = 4 and 16
-// run at the card's 67 TFLOP/s f64 tensor-core rate, twice m8n8k4's
-// (profiling/f64_rates.py, PERF.md).  PTX ISA fragment layout, g = lane /
-// 4, t4 = lane % 4:
-//   a[i] = A[g + 8 (i % 2)][t4 + 4 (i / 2)],  i < K / 2,
-//   b[i] = B[t4 + 4 i][g],                    i < K / 4,
-//   d[i] = D[g + 8 (i / 2)][2 t4 + i % 2].
-__device__ __forceinline__ void fourier_mma_k4(double (&d)[4],
-                                               const double* a,
-                                               const double* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a[0]), "d"(a[1]), "d"(b[0]));
-}
-
-__device__ __forceinline__ void fourier_mma_k16(double (&d)[4],
-                                                const double* a,
-                                                const double* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, "
-      "{%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
-        "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
 }

@@ -15,7 +15,7 @@
 // the CPU to 1e-8 (PERF.md).  The weighted basis is f32(T * w), the
 // reference's Tw, by __fmul_rn.  The products of these f32 values are
 // exact in f64 and are summed in f64 on the f64 tensor cores (mma.sync
-// m16n8k16, fourier_basis.cuh), where the TPU summed in f32.  Zero-weight
+// m16n8k16, mma_f64.cuh), where the TPU summed in f32.  Zero-weight
 // rows and padding add exact zeros.  Sigma is the upper triangle (rows
 // Tw, columns T), mirrored, so it is exactly symmetric.  Summation order:
 // each block sums its contiguous run of rows 16 at a time in row order
@@ -71,6 +71,7 @@
 #include <stdint.h>
 
 #include "fourier_basis.cuh"
+#include "mma_f64.cuh"
 
 #define SUB 64        // rows per chunk
 #define TROWS 16      // output tiles are 16 x 8 (the MMA's m and n)
@@ -211,7 +212,7 @@ struct GramBlock {
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             b[i] = (double)br[4 * i * SQ + tJ[j] * TCOLS];
-          fourier_mma_k16(acc[j], a, b);
+          mma_f64_k16(acc[j], a, b);
         }
       }
     }

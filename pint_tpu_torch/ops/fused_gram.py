@@ -15,8 +15,9 @@ f64 sums free at this kernel's bytes bound (PERF.md).
   (pad to 128-row chunks, f64 ``bmm`` of the f32 values, f64 sum over
   chunks).
 - :func:`fused_gram_joint_cuda` launches ``csrc/fused_gram_joint.cu``
-  (two passes, fixed-order f64 reduction, bitwise reproducible) and
-  counts its launches in ``fused_gram_joint_cuda.launches``.
+  (bulk copies into a ring of shared stages, f64 MMA, two passes,
+  fixed-order f64 reduction, bitwise reproducible) and counts its
+  launches in ``fused_gram_joint_cuda.launches``.
 - :func:`fused_gram_joint` dispatches on where the tensors lie: the
   plain version for CPU tensors, the kernel for CUDA tensors, and no
   fallback between them.
@@ -36,32 +37,40 @@ from pint_tpu_torch.ops._cuda_build import c_entry, check_precision
 F32 = torch.float32
 F64 = torch.float64
 
-#: rows per f32 sub-chunk (the reference's _SUB)
+#: rows per f32 sub-chunk of the plain version (the reference's _SUB)
 SUB = 128
-#: side of the kernel's output tiles (the f64 MMA's m and n)
-TILE = 8
-#: most pass-1 blocks: two per SM of an H100; a constant, so the
+#: rows per chunk of the kernel's copy ring
+ROWS = 64
+#: side lengths of the kernel's output tiles (the f64 MMA's m and n)
+TILE_ROWS, TILE_COLS = 16, 8
+#: most pass-1 blocks: one per SM of an H100; a constant, so the
 #: reduction order (and so every bit of the result) depends on n alone
-NB_MAX = 264
-#: threads per pass-1 block: 8 warps
-THREADS = 256
-#: widest padded column count q_pad = roundup(k + p1, 8) the kernel takes:
-#: its 10 x 11 / 2 = 55 tiles of the upper triangle fit 8 warps of at
-#: most 8 tiles each, and 128 rows of f64 fit in shared memory
+NB_MAX = 132
+#: threads per pass-1 block: 8 MMA warps and 8 converter warps
+THREADS = 512
+#: most columns k + p1 the kernel takes: three raw stages and two f64 Y
+#: tiles of 64 rows fit in shared memory, and its 30 output tiles fit 8
+#: warps of at most 4 tiles each
 Q_MAX = 80
+#: the bulk copies need 16-byte aligned spans
+ALIGN = 16
+
+
+def fused_tile_count(q: int) -> int:
+    """Output tiles of the kernel: 16-column bands I of Y, 8-column tiles
+    2 I <= J < ceil(q / 8)."""
+    nt, nbt = -(-q // TILE_COLS), -(-q // TILE_ROWS)
+    return nbt * nt - nbt * (nbt - 1)
 
 
 def fused_block_table(n: int, k: int, p1: int):
     """Launch geometry of the kernel for T (n, k), A (n, p1), or None
     when the shape is outside its design.  A pure function of the shapes.
-    Returns (nb blocks, q_pad, threads per block)."""
-    if n < 1 or k < 1 or p1 < 1:
+    Returns (nb blocks, q_pad = Y's padded width, threads per block)."""
+    if not (1 <= n < 2**31 and k >= 1 and p1 >= 1 and k + p1 <= Q_MAX):
         return None
-    q_pad = -(-(k + p1) // TILE) * TILE
-    if q_pad > Q_MAX:
-        return None
-    nb = min(-(-n // SUB), NB_MAX)
-    return nb, q_pad, THREADS
+    q_pad = -(-(k + p1) // TILE_ROWS) * TILE_ROWS
+    return min(-(-n // ROWS), NB_MAX), q_pad, THREADS
 
 
 def fused_gram_joint_plain(T32, A, w, precision: str = "highest"):
@@ -81,11 +90,11 @@ def fused_gram_joint_plain(T32, A, w, precision: str = "highest"):
 
 def fused_gram_joint_cuda(T, A, w, precision: str = "highest"):
     """Launch the CUDA kernel on tensors on one card.  T may be f32 or
-    f64 (the kernel rounds it to f32 in registers); A and w are f64."""
+    f64 (the kernel rounds it to f32 as it converts); A and w are f64.
+    Raises, naming the reason, on what the kernel cannot take: the checks
+    of types, shapes, contiguity and 16-byte alignment come before the
+    check of the device."""
     check_precision("fused_gram_joint", precision)
-    dev = T.device
-    if dev.type != "cuda" or A.device != dev or w.device != dev:
-        raise ValueError("fused_gram_joint_cuda: T, A, w must be on one card")
     if T.dtype not in (F32, F64) or A.dtype != F64 or w.dtype != F64:
         raise TypeError(
             "fused_gram_joint_cuda: T f32/f64, A f64, w f64 expected, got "
@@ -102,16 +111,25 @@ def fused_gram_joint_cuda(T, A, w, precision: str = "highest"):
         )
     if not (T.is_contiguous() and A.is_contiguous() and w.is_contiguous()):
         raise ValueError("fused_gram_joint_cuda: inputs must be contiguous")
+    for name, x in (("T", T), ("A", A), ("w", w)):
+        if x.data_ptr() % ALIGN:
+            raise ValueError(
+                f"fused_gram_joint_cuda: {name} starts {x.data_ptr() % ALIGN} "
+                f"bytes past a {ALIGN}-byte boundary; the kernel's bulk copies "
+                "need 16-byte aligned tensors (take a .clone())"
+            )
     tab = fused_block_table(n, k, p1)
     if tab is None:
         raise ValueError(
             f"fused_gram_joint_cuda: (n={n}, k={k}, p1={p1}) is outside "
             "fused_block_table; route through ops/ffgram.py::gram32_joint"
         )
+    dev = T.device
+    if dev.type != "cuda" or A.device != dev or w.device != dev:
+        raise ValueError("fused_gram_joint_cuda: T, A, w must be on one card")
     nb, q_pad, threads = tab
-    nt = q_pad // TILE
-    partial = torch.empty(nb * nt * (nt + 1) // 2 * TILE * TILE, dtype=F64,
-                          device=dev)
+    partial = torch.empty(nb * fused_tile_count(k + p1) * TILE_ROWS
+                          * TILE_COLS, dtype=F64, device=dev)
     gtt = torch.empty((k, k), dtype=F64, device=dev)
     gta = torch.empty((k, p1), dtype=F64, device=dev)
     gaa = torch.empty((p1, p1), dtype=F64, device=dev)

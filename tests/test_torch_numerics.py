@@ -43,6 +43,7 @@ from pint_tpu_torch.ops.ffgram import (  # noqa: E402
 )
 from pint_tpu_torch.ops.fused_gram import (  # noqa: E402
     fused_block_table,
+    fused_tile_count,
     fused_gram_joint,
     fused_gram_joint_cuda,
     fused_gram_joint_plain,
@@ -346,16 +347,36 @@ def test_fused_gram_f64_basis_is_cast_in_place():
 
 def test_fused_block_table():
     """Pure function of the shapes; the bench shape and golden13's k = 1
-    empty basis are inside, columns past the shared-memory design out."""
+    empty basis are inside, columns past the shared-memory design out.
+    One persistent block per SM (132), 64-row chunks, Y padded to whole
+    16-column bands."""
     tab = fused_block_table(100_000, 60, 7)
     assert tab == fused_block_table(100_000, 60, 7)
     nb, q_pad, threads = tab
-    assert q_pad == 72 and threads == 256 and nb == 264
-    assert fused_block_table(92, 1, 9) == (1, 16, 256)
-    assert fused_block_table(1000, 1, 3)[1] == 8
+    assert q_pad == 80 and threads == 512 and nb == 132
+    assert fused_block_table(92, 1, 9) == (2, 16, 512)
+    assert fused_block_table(1000, 1, 3)[1] == 16
     assert fused_block_table(10, 72, 8) is not None
     assert fused_block_table(10, 73, 8) is None
     assert fused_block_table(0, 60, 7) is None
+
+
+@pytest.mark.parametrize("q", range(1, 81))
+def test_fused_tiles_cover_the_upper_triangle(q):
+    """The kernel's 16 x 8 output tiles (bands I, column tiles J >= 2 I,
+    fused_tile_count of them) cover each element (a, c), a <= c < q, of
+    the upper triangle exactly once, and fit the kernel's 8 MMA warps of
+    at most 6 tiles."""
+    nt, nbt = -(-q // 8), -(-q // 16)
+    tiles = [(i, j) for i in range(nbt) for j in range(2 * i, nt)]
+    assert len(tiles) == fused_tile_count(q) <= 8 * 6
+    seen = np.zeros((q, q), dtype=int)
+    for i, j in tiles:
+        for a in range(16 * i, min(16 * i + 16, q)):
+            for c in range(8 * j, min(8 * j + 8, q)):
+                if a <= c:
+                    seen[a, c] += 1
+    assert np.array_equal(seen, np.triu(np.ones((q, q), dtype=int)))
 
 
 def test_fused_gram_dispatch_and_contract():
@@ -369,6 +390,40 @@ def test_fused_gram_dispatch_and_contract():
         fused_gram_joint_cuda(_t(T), _t(A), _t(w))
     with pytest.raises(ValueError, match="precision"):
         fused_gram_joint(_t(T), _t(A), _t(w), precision="high")
+
+
+def _refusal_cases():
+    """(name, (T, A, w), exception, message) for every input the kernel's
+    design cannot take; each is refused before the device is looked at."""
+    T, A, w = (_t(x) for x in gram_inputs(1000, 4))
+    flat = torch.zeros(2 * 1000 * 4 + 1, dtype=F64)
+    return [
+        ("T f16", (T.half(), A, w), TypeError, "T f32/f64"),
+        ("A f32", (T, A.float(), w), TypeError, "A f64"),
+        ("w 2-d", (T, A, w[:, None]), ValueError, r"w \(n,\)"),
+        ("rows differ", (T[:999], A, w), ValueError, "row counts differ"),
+        ("T strided", (T[:, ::2], A, w), ValueError, "contiguous"),
+        ("T 8 bytes off", (flat[1:4001].reshape(1000, 4), A, w), ValueError,
+         "16-byte"),
+        ("q = 81", (torch.zeros(1000, 73, dtype=F64), torch.zeros(1000, 8,
+                                                               dtype=F64),
+                    w), ValueError, "outside fused_block_table"),
+        ("n = 0", (T[:0], A[:0], w[:0]), ValueError,
+         "outside fused_block_table"),
+    ]
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_fused_gram_cuda_refuses_what_the_kernel_cannot_take(case):
+    """The CUDA wrapper's checks of types, shapes, contiguity, 16-byte
+    alignment (the bulk copies') and the block table need no card: on CPU
+    tensors they raise, naming the reason, before the device check, and
+    count no launch."""
+    name, args, exc, msg = _refusal_cases()[case]
+    before = fused_gram_joint_cuda.launches
+    with pytest.raises(exc, match=msg):
+        fused_gram_joint_cuda(*args)
+    assert fused_gram_joint_cuda.launches == before, name
 
 
 def test_solve_policy_knobs(monkeypatch):
@@ -438,15 +493,23 @@ def test_importing_the_port_loads_no_jax():
 
 # -- on the card -----------------------------------------------------------
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,k,p1", [(100_000, 60, 7), (1000, 1, 3)])
-def test_fused_gram_kernel_matches_plain_on_card(n, k, p1):
+@pytest.mark.parametrize("n,k,p1,t32", [
+    (100_000, 60, 7, False), (100_000, 60, 7, True), (1000, 1, 3, False),
+    (92, 1, 9, False), (100_000, 64, 16, False), (100_001, 61, 7, False),
+    (100_001, 61, 7, True)])
+def test_fused_gram_kernel_matches_plain_on_card(n, k, p1, t32):
     """The CUDA kernel against its plain version on the same card
-    tensors: 3e-6 of scale, and bitwise equal to itself on a rerun."""
+    tensors: 3e-6 of scale, and bitwise equal to itself on a rerun.  The
+    shapes are the bench's (T in f64 and f32), k = 1 (golden13's empty
+    basis) with one or two chunks, the widest q = 80, and a ragged n
+    whose last T, A and w spans are not whole 16-byte units."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
     T = torch.as_tensor(rng.standard_normal((n, k)), device=dev)
+    if t32:
+        T = T.float()
     A = torch.as_tensor(rng.standard_normal((n, p1)), device=dev)
     w = torch.as_tensor(rng.uniform(0.5, 2.0, n), device=dev)
     got = fused_gram_joint_cuda(T, A, w)
