@@ -1,7 +1,7 @@
 """Physical and astronomical constants (SI) used by the port's main path.
 
 The values are those of the JAX package's ``constants`` module (IAU 2015 /
-CODATA); only the ones the GLS fit-step slice reads are kept here.
+CODATA); only the ones the port reads are kept here.
 """
 
 import math
@@ -28,6 +28,12 @@ GM_NEPTUNE = 6.836527100580e15  # Neptune system
 
 #: Shapiro factor 2/c^3: times GM gives seconds
 SHAPIRO_T2 = 2.0 / C**3
+
+#: GM_sun / c^3 in seconds (a binary's M2 in solar masses -> seconds)
+TSUN = GM_SUN / C**3
+
+#: IAU 2006 mean obliquity of the ecliptic at J2000 (ecliptic astrometry)
+OBL_J2000 = 84381.406 * ARCSEC_TO_RAD
 
 #: delay = DM * DM_CONST / freq_MHz^2 seconds (Tempo convention)
 DM_CONST = 1.0 / 2.41e-4

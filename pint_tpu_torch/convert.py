@@ -15,8 +15,12 @@ that both packages compute on byte-identical inputs.  The dict holds:
   strings pass as they are;
 - ``"free_names"``: the free parameters in x order;
 - ``"components"``: a list of ``{"name": <class name>, ...settings}``,
-  with ``"masks"`` (mask parameter names) for ScaleToaError, and
-  ``TNREDC`` / ``PLANET_SHAPIRO`` carried through ``ref``.
+  with ``"masks"`` (mask parameter names: EFAC, JUMP, ...) and
+  ``"params"`` (every parameter name, in the component's order, so that
+  indexed families such as the DMX ranges, BT pieces and FB terms are
+  made in the same order as where the state came from), and ``TNREDC``
+  / ``PLANET_SHAPIRO`` carried through ``ref``.  Per-range masks
+  (``DMX_####``, ``BTX_####``) ride in the bundle's ``masks``.
 """
 
 from __future__ import annotations
@@ -55,6 +59,9 @@ def state_from_numpy(state: dict, device=None):
             fams = c.mask_families()
             prefix = mname.rstrip("0123456789")
             fams[prefix](int(mname[len(prefix):]))
+        for pname in spec.get("params", ()):
+            if pname not in c.params:
+                c.ensure_param(pname)
         comps.append(c)
     model = TimingModel(components=comps)
     params = model.params

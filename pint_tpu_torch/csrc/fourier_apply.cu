@@ -28,7 +28,11 @@
 // operations, so the design keeps as many independent chains in flight
 // as the card holds.
 //
-// Structure: a block of 8 warps owns ROWS = 128 rows.
+// Structure: a block of 8 warps owns ROWS = 128 rows (past k = 64, 64, 32
+// or 16 rows, so that a block's tiles take at most a quarter of shared
+// memory and 4 blocks an SM keep their sincos chains in flight;
+// ops/fourier.py::apply_rows, which also launches one kernel per slice of
+// at most 16 columns of z).
 //   1. the k f32 products 2 pi f_j go to shared memory;
 //   2. the block's ROWS x k (row, harmonic) pairs, spread over all 256
 //      threads (2 a row, 15 pairs a thread at k = 30), write the f32 basis
@@ -52,9 +56,7 @@
 #include "fourier_basis.cuh"
 #include "mma_f64.cuh"
 
-#define ROWS 128     // rows per block
 #define THREADS 256  // 8 warps
-#define K_MAX 64     // most harmonics
 #define M_MAX 16     // most columns of z
 
 // basis columns padded to the MMA's k-step of 4
@@ -71,11 +73,18 @@ __host__ __device__ inline int basis_stride(int k) {
 // z's columns padded to the MMA's n of 8
 __host__ __device__ inline int z_cols(int m) { return m <= 8 ? 8 : 16; }
 
-inline size_t apply_smem(int k, int m) {
+// z, the basis tile of `rows` rows, and f32(2 pi) f_j for k rounded up to
+// 64 harmonics
+inline size_t apply_smem(int k, int m, int rows) {
   return (size_t)basis_cols(k) * z_cols(m) * sizeof(double) +
-         (size_t)ROWS * basis_stride(k) * sizeof(float) + K_MAX * sizeof(float);
+         (size_t)rows * basis_stride(k) * sizeof(float) +
+         (size_t)((k + 63) / 64 * 64) * sizeof(float);
 }
 
+// ROWS rows a block: 128 where the basis tile fits shared memory, else
+// 64, 32 or 16 (ops/fourier.py::fourier_apply_table).  The rows of a
+// block change no output bit: each output sums its own row's products.
+template <int ROWS>
 __global__ void __launch_bounds__(THREADS)
     apply_kernel(const double* __restrict__ t,
                  const double* __restrict__ freqs,
@@ -143,20 +152,39 @@ __global__ void __launch_bounds__(THREADS)
 // C entry: launches the kernel on `stream` and returns cudaGetLastError().
 // The caller allocates y and checks shapes, types and contiguity against
 // ops/fourier.py's fourier_apply_table, which this re-checks.
-extern "C" int fourier_apply_launch(const double* t, const double* freqs,
-                                    const double* z, int n, int k, int m,
-                                    int blocks, int threads, float* y,
-                                    void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k < 1 || k > K_MAX || m < 1 || m > M_MAX || n < 1 ||
-      threads != THREADS || (long)blocks * ROWS < n)
-    return (int)cudaErrorInvalidValue;  // outside the kernel's design
-  const size_t smem = apply_smem(k, m);
+template <int ROWS>
+static cudaError_t launch_apply(const double* t, const double* freqs,
+                                const double* z, int n, int k, int m,
+                                int blocks, float* y, cudaStream_t s) {
+  const size_t smem = apply_smem(k, m, ROWS);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        apply_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+        apply_kernel<ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
   }
-  apply_kernel<<<blocks, threads, smem, s>>>(t, freqs, z, n, k, m, y);
-  return (int)cudaGetLastError();
+  apply_kernel<ROWS><<<blocks, THREADS, smem, s>>>(t, freqs, z, n, k, m, y);
+  return cudaGetLastError();
+}
+
+extern "C" int fourier_apply_launch(const double* t, const double* freqs,
+                                    const double* z, int n, int k, int m,
+                                    int blocks, int threads, int rows,
+                                    float* y, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k < 1 || m < 1 || m > M_MAX || n < 1 || threads != THREADS ||
+      (long)blocks * rows < n)
+    return (int)cudaErrorInvalidValue;  // outside the kernel's design
+  cudaError_t err;
+  if (rows == 128)
+    err = launch_apply<128>(t, freqs, z, n, k, m, blocks, y, s);
+  else if (rows == 64)
+    err = launch_apply<64>(t, freqs, z, n, k, m, blocks, y, s);
+  else if (rows == 32)
+    err = launch_apply<32>(t, freqs, z, n, k, m, blocks, y, s);
+  else if (rows == 16)
+    err = launch_apply<16>(t, freqs, z, n, k, m, blocks, y, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)err;
 }

@@ -23,8 +23,10 @@
 // strided runs (b = w, w + 8, ...), then the 8 runs in order.  (An
 // earlier layout of this kernel summed 4-row steps over 128-row chunks,
 // so its last bits differ from this one's.)  No atomics: bitwise
-// reproducible from run to run, and the bits depend on n alone through
-// the constant block count NB = min(ceil(n / 64), 264).
+// reproducible from run to run, and the bits depend on n and k alone
+// through the chunk height R (64, or 32 or 16 past k = 88) and the block
+// count NB = min(ceil(n / R), 264): not on p, so ops/fourier.py's launches
+// over column slices of a wide X give the bits of one wider launch.
 //
 // Bound on an H100 SXM at the bench shape (n = 1e5, k = 30, p = 7): the
 // function reads 8 n (p + 2) = 7.2 MB (2.2 us at 3.35 TB/s) and does
@@ -62,10 +64,17 @@
 //   pass 2: a block of 8 warps takes 32 consecutive partial elements, one
 //     per lane, so a warp's loads are 256 contiguous bytes; warp w sums
 //     blocks w, w + 8, ... and the block adds the 8 sums in order.
+// Wide shapes: more harmonics take chunks of R = 32 or 16 rows (the
+// template parameter of GramBlockT and gram_pass1), so the ring of two
+// slots fits shared memory with at least 64 columns of X; more columns
+// take more tile groups along y (each generating its chunks' basis
+// again) and a larger ring (164 KB at k = 30, p = 169: one block an SM,
+// whose warps then own up to MAXT_WIDE = 6 tiles each in the registers
+// the second block would have had, so fewer groups generate the basis).
 // ptxas on the H100 (chip_smoke.py's build log): pass 1 79 registers
-// (the cap of 2 blocks of 384 threads is 80), no spills, a 40-byte stack
-// frame (libdevice sincos' large-argument branch), 74 KB of dynamic
-// shared memory at the bench shape; pass 2 30 registers, 2 KB.
+// (the cap of 2 blocks of 384 threads is 80) for each R, no spills, a
+// 40-byte stack frame (libdevice sincos' large-argument branch), 74 KB of
+// dynamic shared memory at the bench shape; pass 2 30 registers, 2 KB.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,33 +82,39 @@
 #include "fourier_basis.cuh"
 #include "mma_f64.cuh"
 
-#define SUB 64        // rows per chunk
+#define SUB 64        // rows per chunk where the ring holds them (k <= 88)
 #define TROWS 16      // output tiles are 16 x 8 (the MMA's m and n)
 #define TCOLS 8
 #define TELEMS (TROWS * TCOLS)
 #define WARPS 12      // warps per pass-1 block
 #define THREADS (WARPS * 32)
-#define MAXT 2        // most output tiles one warp owns
-#define K_MAX 64      // most harmonics
+#define MAXT 2        // output tiles a warp owns where 2 blocks fit an SM
+#define MAXT_WIDE 6   // ... where the ring leaves room for one block
 #define P2_WARPS 8    // warps per pass-2 block
-#define TPR (THREADS / SUB)  // staging threads a row
 
-// bytes of one ring slot: Tw (SUB x row stride of kb), then [T | X]
-// (SUB x row stride of q_pad), both f32
-__host__ __device__ inline int slot_bytes(int kb, int q_pad) {
-  return SUB * (fourier_mma_stride(kb) + fourier_mma_stride(q_pad)) *
+// bytes of one ring slot of R-row chunks: Tw (R x row stride of kb), then
+// [T | X] (R x row stride of q_pad), both f32
+__host__ __device__ inline int slot_bytes(int kb, int q_pad, int R = SUB) {
+  return R * (fourier_mma_stride(kb) + fourier_mma_stride(q_pad)) *
          (int)sizeof(float);
 }
 
-inline size_t pass1_smem(int kb, int q_pad) {
-  return 2 * (size_t)slot_bytes(kb, q_pad) + K_MAX * sizeof(float);
+// the ring's two slots, then f32(2 pi) f_j for k rounded up to 64
+inline size_t pass1_smem(int kb, int q_pad, int R = SUB) {
+  return 2 * (size_t)slot_bytes(kb, q_pad, R) +
+         (size_t)((kb / 2 + 63) / 64 * 64) * sizeof(float);
 }
 
-// One pass-1 block: its ring of two chunk slots in shared memory, and
-// this warp's output tiles with their sums.  gram_pass1 runs it; its
-// halves, staging and MMA, are also run alone to time them
-// (profiling/fourier_gram_split.cu).
-struct GramBlock {
+// One pass-1 block: its ring of two chunk slots of R rows in shared
+// memory, and this warp's output tiles with their sums.  gram_pass1 runs
+// it; its halves, staging and MMA, are also run alone to time them
+// (profiling/fourier_gram_split.cu).  R is 64 for 2k <= 208 harmonic
+// columns; wider bases take chunks of 32 or 16 rows, so that the ring
+// fits shared memory (ops/fourier.py::gram_rows).
+template <int R, int TW>
+struct GramBlockT {
+  static constexpr int TPR = THREADS / R;  // staging threads a row
+
   char* ring;
   float* fw;  // f32(2 pi) f_j
   const double* t;
@@ -107,19 +122,19 @@ struct GramBlock {
   const double* X;
   int n, k, p, kb, SW, SQ, slot;
   int tid, warp, g, t4, first, mine;
-  int tI[MAXT], tJ[MAXT];
-  double acc[MAXT][4];
+  int tI[TW], tJ[TW];
+  double acc[TW][4];
 
   // Sets up the block and writes fw and the pad columns of both slots;
   // the caller syncs before staging.
-  __device__ __forceinline__ GramBlock(void* smem, const double* t_,
+  __device__ __forceinline__ GramBlockT(void* smem, const double* t_,
                                        const double* freqs,
                                        const double* w_, const double* X_,
                                        int n_, int k_, int p_, int kb_,
                                        int q_pad, int ntiles)
       : ring(static_cast<char*>(smem)), t(t_), w(w_), X(X_), n(n_), k(k_),
         p(p_), kb(kb_), SW(fourier_mma_stride(kb_)),
-        SQ(fourier_mma_stride(q_pad)), slot(slot_bytes(kb_, q_pad)),
+        SQ(fourier_mma_stride(q_pad)), slot(slot_bytes(kb_, q_pad, R)),
         tid(threadIdx.x), warp(threadIdx.x >> 5),
         g((threadIdx.x & 31) >> 2), t4(threadIdx.x & 3) {
     fw = reinterpret_cast<float*>(ring + 2 * slot);
@@ -127,13 +142,13 @@ struct GramBlock {
     // tiles run row-major over the block triangle, row I (basis columns
     // 16 I .. 16 I + 15) holding the column tiles J = 2 I .. nt - 1
     const int nt = q_pad / TCOLS;
-    const int tile0 = blockIdx.y * (WARPS * MAXT);
-    const int count = min(WARPS * MAXT, ntiles - tile0);
+    const int tile0 = blockIdx.y * (WARPS * TW);
+    const int count = min(WARPS * TW, ntiles - tile0);
     const int per = (count + WARPS - 1) / WARPS;
     first = tile0 + warp * per;
     mine = max(0, min(per, tile0 + count - first));
 #pragma unroll
-    for (int j = 0; j < MAXT; ++j) {
+    for (int j = 0; j < TW; ++j) {
       int tt = first + j, I = 0, row = nt;
       while (row > 0 && tt >= row) {
         tt -= row;
@@ -148,9 +163,9 @@ struct GramBlock {
     for (int j = tid; j < k; j += THREADS) fw[j] = fourier_omega(freqs[j]);
     // the pad columns of both slots: Tw's [2k, SW), [T | X]'s [2k, kb)
     // and [kb + p, SQ)
-    for (int idx = tid; idx < 2 * SUB; idx += THREADS) {
-      float* tw = tw_of(idx / SUB) + (idx % SUB) * SW;
-      float* tx = tx_of(idx / SUB) + (idx % SUB) * SQ;
+    for (int idx = tid; idx < 2 * R; idx += THREADS) {
+      float* tw = tw_of(idx / R) + (idx % R) * SW;
+      float* tx = tx_of(idx / R) + (idx % R) * SQ;
       for (int c = 2 * k; c < SW; ++c) tw[c] = 0.0f;
       for (int c = 2 * k; c < kb; ++c) tx[c] = 0.0f;
       for (int c = kb + p; c < SQ; ++c) tx[c] = 0.0f;
@@ -162,7 +177,7 @@ struct GramBlock {
     return reinterpret_cast<float*>(ring + s * slot);
   }
   __device__ __forceinline__ float* tx_of(int s) const {
-    return reinterpret_cast<float*>(ring + s * slot) + SUB * SW;
+    return reinterpret_cast<float*>(ring + s * slot) + R * SW;
   }
 
   // chunk c into slot s: sin in column j, cos in column k + j, rows past
@@ -171,8 +186,8 @@ struct GramBlock {
   __device__ __forceinline__ void stage(long c, int s) {
     float* tw = tw_of(s);
     float* tx = tx_of(s);
-    const long r0 = c * SUB;
-    const int rows = (long)n - r0 < SUB ? (int)((long)n - r0) : SUB;
+    const long r0 = c * R;
+    const int rows = (long)n - r0 < R ? (int)((long)n - r0) : R;
     const int r = tid / TPR;
     const bool live = r < rows;
     const float tr = live ? (float)t[r0 + r] : 0.0f;
@@ -186,7 +201,7 @@ struct GramBlock {
       tw[r * SW + k + j] = __fmul_rn(sc.y, wr);
     }
     const double* Xc = X + r0 * p;
-    for (int idx = tid; idx < SUB * p; idx += THREADS) {
+    for (int idx = tid; idx < R * p; idx += THREADS) {
       const int rx = idx / p;
       tx[rx * SQ + kb + (idx - rx * p)] = rx < rows ? (float)Xc[idx] : 0.0f;
     }
@@ -196,12 +211,12 @@ struct GramBlock {
   __device__ __forceinline__ void contract(int s) {
     const float* tw = tw_of(s);
     const float* tx = tx_of(s);
-    for (int r = 0; r < SUB; r += 16) {
+    for (int r = 0; r < R; r += 16) {
       const float* ar = tw + (r + t4) * SW + g;
       const float* br = tx + (r + t4) * SQ + g;
       double a[8];
 #pragma unroll
-      for (int j = 0; j < MAXT; ++j) {
+      for (int j = 0; j < TW; ++j) {
         if (j < mine) {  // uniform across the warp
           if (j == 0 || tI[j] != tI[j - 1]) {
 #pragma unroll
@@ -222,7 +237,7 @@ struct GramBlock {
   // column]: a warp writes a tile's 128 doubles contiguously
   __device__ __forceinline__ void store(double* partial, int ntiles) const {
 #pragma unroll
-    for (int j = 0; j < MAXT; ++j) {
+    for (int j = 0; j < TW; ++j) {
       if (j < mine) {
         double* out = partial +
                       ((long)blockIdx.x * ntiles + first + j) * TELEMS +
@@ -236,7 +251,9 @@ struct GramBlock {
   }
 };
 
-// this block's contiguous run [c0, c0 + count) of the n's 64-row chunks
+using GramBlock = GramBlockT<SUB, MAXT>;
+
+// this block's contiguous run [c0, c0 + count) of the n's R-row chunks
 __device__ __forceinline__ long chunk_first(int nchunks) {
   return (long)nchunks * blockIdx.x / gridDim.x;
 }
@@ -245,13 +262,14 @@ __device__ __forceinline__ int chunk_count(int nchunks) {
                chunk_first(nchunks));
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
+template <int R, int TW>
+__global__ void __launch_bounds__(THREADS, TW == MAXT ? 2 : 1)
     gram_pass1(const double* __restrict__ t, const double* __restrict__ freqs,
                const double* __restrict__ w, const double* __restrict__ X,
                int n, int k, int p, int kb, int q_pad, int nchunks,
                int ntiles, double* __restrict__ partial) {
   extern __shared__ double smem[];
-  GramBlock b(smem, t, freqs, w, X, n, k, p, kb, q_pad, ntiles);
+  GramBlockT<R, TW> b(smem, t, freqs, w, X, n, k, p, kb, q_pad, ntiles);
   __syncthreads();
   const long c0 = chunk_first(nchunks);
   const int nits = chunk_count(nchunks);
@@ -312,38 +330,77 @@ __global__ void __launch_bounds__(P2_WARPS * 32)
 }
 
 static int check_shape(int n, int k, int p, int kb, int q_pad, int nb,
-                       int ny, int threads, int* ntiles) {
+                       int ny, int threads, int* ntiles, int tw = MAXT) {
   const int nt = q_pad / TCOLS, nbt = kb / TROWS;
   *ntiles = nbt * nt - nbt * (nbt - 1);
-  return threads == THREADS && k >= 1 && k <= K_MAX && p >= 1 &&
+  return threads == THREADS && k >= 1 && p >= 1 &&
          kb % TROWS == 0 && kb >= 2 * k && q_pad % TCOLS == 0 &&
-         q_pad >= kb + p && ny * WARPS * MAXT >= *ntiles && nb >= 1 &&
+         q_pad >= kb + p && ny * WARPS * tw >= *ntiles && nb >= 1 &&
          n >= 1;
+}
+
+template <int R, int TW>
+static cudaError_t launch_pass1(const double* t, const double* freqs,
+                                const double* w, const double* X, int n,
+                                int k, int p, int kb, int q_pad, int nb,
+                                int ny, int ntiles, double* partial,
+                                cudaStream_t s) {
+  const size_t smem = pass1_smem(kb, q_pad, R);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gram_pass1<R, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  gram_pass1<R, TW><<<dim3(nb, ny), THREADS, smem, s>>>(
+      t, freqs, w, X, n, k, p, kb, q_pad, (n + R - 1) / R, ntiles, partial);
+  return cudaGetLastError();
+}
+
+template <int R>
+static cudaError_t launch_rows(const double* t, const double* freqs,
+                               const double* w, const double* X, int n, int k,
+                               int p, int kb, int q_pad, int nb, int ny,
+                               int ntiles, int tw, double* partial,
+                               cudaStream_t s) {
+  if (tw == MAXT)
+    return launch_pass1<R, MAXT>(t, freqs, w, X, n, k, p, kb, q_pad, nb, ny,
+                                 ntiles, partial, s);
+  return launch_pass1<R, MAXT_WIDE>(t, freqs, w, X, n, k, p, kb, q_pad, nb,
+                                    ny, ntiles, partial, s);
 }
 
 // C entry: launches both passes on `stream` and returns cudaGetLastError().
 // The caller allocates `partial` (nb * ntiles * 128 f64) and the outputs,
 // and checks shapes, types and contiguity against ops/fourier.py's
-// fourier_gram_table, which this re-checks.
+// fourier_gram_table, which this re-checks; `rows` is the chunk height
+// R (64, 32 or 16), nb at most ceil(n / rows), and `tiles` the output
+// tiles a warp owns (MAXT, or MAXT_WIDE where the ring leaves room for
+// one block an SM).
 extern "C" int fourier_gram_launch(const double* t, const double* freqs,
                                    const double* w, const double* X, int n,
                                    int k, int p, int kb, int q_pad, int nb,
-                                   int ny, int threads, double* partial,
-                                   double* sig, double* twx, void* stream) {
+                                   int ny, int threads, int rows, int tiles,
+                                   double* partial, double* sig, double* twx,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int ntiles;
-  if (!check_shape(n, k, p, kb, q_pad, nb, ny, threads, &ntiles))
+  if (!check_shape(n, k, p, kb, q_pad, nb, ny, threads, &ntiles, tiles) ||
+      (tiles != MAXT && tiles != MAXT_WIDE) ||
+      (long)nb * rows > (long)n + rows - 1)
     return (int)cudaErrorInvalidValue;  // outside the kernel's design
-  const size_t smem = pass1_smem(kb, q_pad);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gram_pass1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  gram_pass1<<<dim3(nb, ny), THREADS, smem, s>>>(
-      t, freqs, w, X, n, k, p, kb, q_pad, (n + SUB - 1) / SUB, ntiles,
-      partial);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+  if (rows == 64)
+    err = launch_rows<64>(t, freqs, w, X, n, k, p, kb, q_pad, nb, ny, ntiles,
+                          tiles, partial, s);
+  else if (rows == 32)
+    err = launch_rows<32>(t, freqs, w, X, n, k, p, kb, q_pad, nb, ny, ntiles,
+                          tiles, partial, s);
+  else if (rows == 16)
+    err = launch_rows<16>(t, freqs, w, X, n, k, p, kb, q_pad, nb, ny, ntiles,
+                          tiles, partial, s);
+  else
+    return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
   const int blocks = (ntiles * TELEMS + 31) / 32;
   gram_pass2<<<blocks, P2_WARPS * 32, 0, s>>>(partial, nb, k, p, kb, q_pad,

@@ -1,11 +1,14 @@
-"""Model builder: par text -> TimingModel, for the port's seven components.
+"""Model builder: par text -> TimingModel of the ported components.
 
-Counterpart of ``pint_tpu/models/builder.py::get_model``, cut to the
-components ported so far: AstrometryEquatorial, SolarSystemShapiro,
-DispersionDM, Spindown, PLRedNoise, EcorrNoise and ScaleToaError.
-A component is included when the par text names one of its trigger
-parameters; SolarSystemShapiro comes with astrometry.  Any other par line
-raises NotImplementedError naming the ROADMAP item that will port it.
+Counterpart of ``pint_tpu/models/builder.py::get_model``, with its
+selection rule: a component is included when the par text names a
+parameter (or mask family, or indexed-family member such as DMX_0017)
+that it alone of the ported non-binary components accepts; the binary
+model is chosen by the BINARY line alone; SolarSystemShapiro comes with
+astrometry.  Ported: equatorial and ecliptic astrometry, solar-system
+Shapiro, DM, DMX, FD, FDJUMP, JUMP, spindown, the ten binary models,
+EFAC/EQUAD, ECORR and power-law red noise.  Any other par line raises
+NotImplementedError naming the ROADMAP item that will port it.
 """
 
 from __future__ import annotations
@@ -13,23 +16,35 @@ from __future__ import annotations
 import io
 from collections import OrderedDict
 
-from pint_tpu_torch.models.astrometry import AstrometryEquatorial
-from pint_tpu_torch.models.dispersion import DispersionDM
+from pint_tpu_torch.models.astrometry import (
+    Astrometry,
+    AstrometryEcliptic,
+    AstrometryEquatorial,
+)
+from pint_tpu_torch.models.dispersion import DispersionDM, DispersionDMX
+from pint_tpu_torch.models.frequency_dependent import FD, FDJump
+from pint_tpu_torch.models.jump import PhaseJump
 from pint_tpu_torch.models.noise import EcorrNoise, PLRedNoise, ScaleToaError
 from pint_tpu_torch.models.parameter import (
     MJDParameter,
     floatParameter,
     strParameter,
 )
+from pint_tpu_torch.models.pulsar_binary import BINARY_MODELS
 from pint_tpu_torch.models.solar_system_shapiro import SolarSystemShapiro
 from pint_tpu_torch.models.spindown import Spindown
 from pint_tpu_torch.models.timing_model import TimingModel
 
-COMPONENTS = {
+#: the non-binary components the builder chooses among
+SELECTABLE = {
     cls.__name__: cls
-    for cls in (AstrometryEquatorial, DispersionDM, EcorrNoise, PLRedNoise,
-                ScaleToaError, Spindown, SolarSystemShapiro)
+    for cls in (AstrometryEcliptic, AstrometryEquatorial, DispersionDM,
+                DispersionDMX, EcorrNoise, FD, FDJump, PLRedNoise,
+                PhaseJump, ScaleToaError, SolarSystemShapiro, Spindown)
 }
+#: every component a state may name (``convert.state_from_numpy``)
+COMPONENTS = {**SELECTABLE,
+              **{cls.__name__: cls for cls in BINARY_MODELS.values()}}
 
 # par-file lines that are not parameters
 _IGNORE = {"MODE", "EPHVER", "END", "NITS", "IBOOT"}
@@ -58,13 +73,45 @@ def parse_parfile(text: str) -> "OrderedDict[str, list[list[str]]]":
 
 
 def _not_ported(name: str) -> NotImplementedError:
-    if name in ("BINARY", "UNITS"):
-        item = "A6 (binary models and TCB parameter conversion)"
+    if name == "UNITS":
+        item = "A6 (TCB parameter conversion)"
     else:
-        item = "A6 (the remaining timing-model components)"
+        item = ("A6 (the remaining timing-model components: solar wind, "
+                "glitch, wave, ifunc, piecewise spindown, absolute phase, "
+                "troposphere, chromatic, DMJUMP, phase offset, and the DM "
+                "and chromatic noise)")
     return NotImplementedError(
         f"par line {name!r} is outside the ported slice; ROADMAP {item}"
     )
+
+
+def _choose(pardict) -> list:
+    """The reference's rule: each par name accepted by exactly one
+    selectable component selects it (sorted by class name), then the
+    BINARY line's model, then SolarSystemShapiro with astrometry."""
+    protos = {n: cls() for n, cls in SELECTABLE.items()}
+    chosen = set()
+    for name in pardict:
+        if name in _IGNORE:
+            continue
+        hits = [n for n, c in protos.items()
+                if name in c.mask_families()
+                or c.ensure_param(name) is not None]
+        if len(hits) == 1:
+            chosen.add(hits[0])
+    comps = [SELECTABLE[n]() for n in sorted(chosen)]
+    if sum(isinstance(c, Astrometry) for c in comps) > 1:
+        raise ValueError("par text mixes equatorial (RAJ/DECJ) and "
+                         "ecliptic (ELONG/ELAT) astrometry")
+    if "BINARY" in pardict:
+        kind = pardict["BINARY"][0][0].upper()
+        if kind not in BINARY_MODELS:
+            raise ValueError(f"unknown binary model {kind!r}")
+        comps.append(BINARY_MODELS[kind]())
+    if (any(isinstance(c, Astrometry) for c in comps)
+            and not any(isinstance(c, SolarSystemShapiro) for c in comps)):
+        comps.append(SolarSystemShapiro())
+    return comps
 
 
 def _top_param(name, tokens):
@@ -84,22 +131,11 @@ def get_model(par_text: str) -> TimingModel:
     units = pardict.get("UNITS", [["TDB"]])[0][0].upper()
     if units != "TDB":
         raise _not_ported("UNITS")
-    chosen = set()
-    for name in pardict:
-        for cname, cls in COMPONENTS.items():
-            if name in cls.triggers:
-                chosen.add(cname)
-    if "AstrometryEquatorial" in chosen:
-        chosen.add("SolarSystemShapiro")
-    # sorted by class name, SolarSystemShapiro last: the reference
-    # builder's insertion order, which fixes the noise-basis column order
-    comps = [COMPONENTS[n]() for n in sorted(chosen - {"SolarSystemShapiro"})]
-    if "SolarSystemShapiro" in chosen:
-        comps.append(SolarSystemShapiro())
+    comps = _choose(pardict)
     model = TimingModel(components=comps)
     counters: dict[tuple[int, str], int] = {}
     for name, entries in pardict.items():
-        if name in _IGNORE or name == "UNITS":
+        if name in _IGNORE or name in ("UNITS", "BINARY"):
             continue
         if name in _TOP_STR + _TOP_FLOAT + _TOP_MJD:
             model.top_params[name] = _top_param(name, entries[0])

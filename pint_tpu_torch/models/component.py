@@ -17,13 +17,29 @@ from typing import Optional
 
 from pint_tpu_torch.models.parameter import Parameter, maskParameter
 
-# category evaluation order for delays/phases (the JAX package's
-# DEFAULT_ORDER, cut to the categories this slice has)
+# category evaluation order for delays/phases: the JAX package's
+# DEFAULT_ORDER (each delay component sees the delay accumulated by the
+# ones before it, so the binary, "pulsar_system", sees astrometry,
+# Shapiro, DM, DMX and FD)
 DEFAULT_ORDER = [
     "astrometry",
+    "jump_delay",
+    "troposphere",
     "solar_system_shapiro",
+    "solar_wind",
     "dispersion_constant",
+    "dispersion_dmx",
+    "chromatic",
+    "frequency_dependent",
+    "pulsar_system",
     "spindown",
+    "phase_jump",
+    "wave",
+    "ifunc",
+    "glitch",
+    "piecewise_spindown",
+    "absolute_phase",
+    "phase_offset",
 ]
 
 
@@ -31,8 +47,6 @@ class Component:
     """Base: ordered parameter container."""
 
     category: Optional[str] = None
-    #: par names whose presence selects this component (builder rule)
-    triggers: tuple = ()
 
     def __init__(self):
         self.params: dict[str, Parameter] = {}
@@ -70,13 +84,23 @@ class Component:
         """prefix -> factory(index) for repeated par lines (EFAC, ...)."""
         return {}
 
+    def new_prefix_param(self, name: str):
+        """A Parameter for an indexed-family name not yet instantiated
+        (DMX_0017, FB3, ...), or None if this component has no such
+        family."""
+        return None
+
     def ensure_param(self, name: str):
         """The Parameter this component holds for par name ``name``
-        (aliases included), or None."""
+        (aliases included), freshly made for an indexed family, or
+        None."""
         for p in self.params.values():
             if p.name_matches(name):
                 return p
-        return None
+        return self.new_prefix_param(name)
+
+    def remove_param(self, name: str):
+        self.params.pop(name, None)
 
     def __repr__(self):
         ps = ", ".join(

@@ -37,7 +37,6 @@ class ScaleToaError(NoiseComponent):
     (tempo2 convention)."""
 
     category = "scale_toa_error"
-    triggers = ("EFAC", "T2EFAC", "EQUAD", "T2EQUAD", "TNEQ")
 
     def __init__(self):
         super().__init__()
@@ -122,7 +121,6 @@ class EcorrNoise(NoiseComponent):
     quantization matrix U, weight = ECORR^2 per epoch."""
 
     category = "ecorr_noise"
-    triggers = ("ECORR", "T2ECORR")
     introduces_correlated_errors = True
 
     def __init__(self):
@@ -222,7 +220,6 @@ class PLRedNoise(NoiseComponent):
     """Power-law achromatic red noise (TNREDAMP/TNREDGAM/TNREDC)."""
 
     category = "pl_red_noise"
-    triggers = ("TNREDAMP", "TNREDGAM", "TNREDC")
     introduces_correlated_errors = True
 
     def __init__(self):

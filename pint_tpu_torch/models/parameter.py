@@ -119,16 +119,45 @@ class Parameter:
         return f"<{type(self).__name__} {self.name}={self.value}{fit}>"
 
 
+#: the tempo convention of PBDOT, XDOT, EDOT and the like: par values
+#: larger than the threshold are in units of the factor
+TEMPO_SCALE_THRESHOLD = 1e-7
+TEMPO_SCALE_FACTOR = 1e-12
+
+
 class floatParameter(Parameter):
-    def __init__(self, name, value=None, long_double=False, **kw):
+    """f64 or double-double (``long_double``) float; ``unit_scale``
+    parameters read par values by the tempo convention above."""
+
+    def __init__(self, name, value=None, long_double=False,
+                 unit_scale=False, **kw):
         # long_double (reference naming) => double-double precision
         self.precision = "dd" if long_double else "f64"
+        self.unit_scale = unit_scale
+        self._applied_scale = False
         super().__init__(name, value=value, **kw)
 
     def _parse_value_str(self, s):
         if self.precision == "dd":
-            return HostDD.from_string(_fortran_to_e(s))
-        return _parse_float_str(s)
+            v = HostDD.from_string(_fortran_to_e(s))
+            big = abs(float(v.to_float())) > TEMPO_SCALE_THRESHOLD
+        else:
+            v = _parse_float_str(s)
+            big = abs(v) > TEMPO_SCALE_THRESHOLD
+        if self.unit_scale and big:
+            self._applied_scale = True
+            return v * TEMPO_SCALE_FACTOR
+        return v
+
+    def set_from_tokens(self, tokens):
+        self._applied_scale = False
+        super().set_from_tokens(tokens)
+        # the tempo scaling applies to an uncertainty of these tokens
+        has_unc = len(tokens) >= 3 or (
+            len(tokens) == 2 and tokens[1] not in ("0", "1")
+        )
+        if self._applied_scale and has_unc and self.uncertainty is not None:
+            self.uncertainty *= TEMPO_SCALE_FACTOR
 
     def set_internal(self, v):
         if self.precision == "dd" and not isinstance(v, HostDD):
@@ -285,3 +314,13 @@ class maskParameter(floatParameter):
         flag = self.key.lstrip("-")
         want = str(self.key_value[0])
         return np.array([str(f.get(flag, "")) == want for f in toas["flags"]])
+
+
+def prefix_index(name: str, prefix: str) -> Optional[int]:
+    """Index of a prefixed-family name ('FB12', 'FB') -> 12; None if
+    ``name`` is not ``prefix`` followed by digits."""
+    name, prefix = name.upper(), prefix.upper()
+    if not name.startswith(prefix):
+        return None
+    tail = name[len(prefix):]
+    return int(tail) if tail.isdigit() else None

@@ -34,7 +34,6 @@ _PLANET_GM = {
 
 class SolarSystemShapiro(DelayComponent):
     category = "solar_system_shapiro"
-    triggers = ("PLANET_SHAPIRO",)
 
     def __init__(self):
         super().__init__()
@@ -42,11 +41,11 @@ class SolarSystemShapiro(DelayComponent):
         self._astrometry_ref = None
 
     def setup(self, model):
-        from pint_tpu_torch.models.astrometry import AstrometryEquatorial
+        from pint_tpu_torch.models.astrometry import Astrometry
 
         self._astrometry_ref = None
         for c in model.components.values():
-            if isinstance(c, AstrometryEquatorial):
+            if isinstance(c, Astrometry):
                 self._astrometry_ref = c
 
     @staticmethod

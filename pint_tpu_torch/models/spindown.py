@@ -15,7 +15,6 @@ from pint_tpu_torch.ops.taylor import taylor_horner_dd, taylor_horner_deriv_dd
 
 class Spindown(PhaseComponent):
     category = "spindown"
-    triggers = ("PEPOCH",) + tuple(f"F{k}" for k in range(0, 13))
 
     def __init__(self, max_fterms: int = 12):
         super().__init__()

@@ -35,17 +35,23 @@ Each function comes three ways, as ``ops/fused_gram.py``:
 - the dispatcher: the plain version for CPU tensors, the kernel for CUDA
   tensors, no fallback between them.
 
-:func:`fourier_gram_table` and :func:`fourier_apply_table` say from the
-shapes alone what the kernels take (k <= 64 harmonics, p <= 16 and
-m <= 16 columns); the dispatchers raise ValueError on any other shape, on
-every device, before any launch.  Only the ``precision='highest'`` rung
-is ported.  The reference's TPU tile argument ``block`` is not part of
+:func:`fourier_gram_table` and :func:`fourier_apply_table` give, from
+the shapes alone, the geometry of one launch of each kernel.  A launch
+takes at most :func:`gram_columns` columns of X (at least 64) and
+``M_MAX`` columns of z; the CUDA wrappers cut wider X and z into column
+slices, one launch each.  Each output column's sum is independent of the
+others and the chunk height (:func:`gram_rows`) depends on k alone, so a
+sliced call gives the bits of one wider launch.  The card takes every p
+and m, and k up to the harmonics whose basis tile fits shared memory
+(424 for fourier_gram, 598 for fourier_apply); the plain versions take
+every shape.  Only the ``precision='highest'`` rung is ported.  The reference's TPU tile argument ``block`` is not part of
 these signatures: the kernels choose their own geometry.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -57,7 +63,8 @@ F64 = torch.float64
 
 #: 2 pi, rounded to f32 where it meets the f32 frequencies
 TWO_PI = 2.0 * math.pi
-#: rows per staged chunk of fourier_gram (a slot of its shared ring)
+#: rows per 2-d chunk of the plain versions' sums, and per staged chunk
+#: of fourier_gram where its ring holds them (gram_rows)
 SUB = 64
 #: fourier_gram's output tiles: 16 x 8, the f64 MMA m16n8k16's m and n
 TILE_ROWS = 16
@@ -65,15 +72,26 @@ TILE = 8
 #: most pass-1 blocks along n: a constant, so the reduction order (and so
 #: every bit of the result) depends on n alone
 NB_MAX = 264
-#: threads per fourier_gram pass-1 block (12 warps of at most 2 tiles)
+#: threads per fourier_gram pass-1 block (12 warps), and the output
+#: tiles a warp owns: 2 where two blocks fit an SM's shared memory, else 6
+#: (one block an SM leaves it the registers of two)
 THREADS = 384
-TILES_PER_BLOCK = 24
-#: widest shapes the kernels take
-K_MAX = 64
-P_MAX = 16
+WARPS = THREADS // 32
+TILES_PER_WARP = (2, 6)
+#: shared memory of an SM that blocks can have (bytes), and what the
+#: card reserves for each block beside its own
+SMEM_SM = 233_472
+SMEM_BLOCK_RESERVED = 1024
+#: shared memory a block can have on an H100 (bytes)
+SMEM_MAX = 232_448
+#: fourier_gram's chunk heights, and the columns of X its ring must hold
+#: beside the basis for a height to be taken
+GRAM_ROWS = (64, 32, 16)
+GRAM_P_MIN = 64
+#: columns of z per fourier_apply launch
 M_MAX = 16
-#: fourier_apply: rows and threads per block
-APPLY_ROWS = 128
+#: fourier_apply: rows per block (the first whose tiles fit), threads
+APPLY_ROWS = (128, 64, 32, 16)
 APPLY_THREADS = 256
 
 
@@ -81,29 +99,102 @@ def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def fourier_gram_table(n: int, k: int, p: int):
-    """Launch geometry of fourier_gram for n TOAs, k harmonics and p
-    columns of X, or None when the shape is outside the kernel's design.
-    Returns (nb blocks along n, ny tile groups, kb padded basis columns,
-    q_pad padded columns, ntiles, threads per block)."""
-    if n < 1 or not 1 <= k <= K_MAX or not 1 <= p <= P_MAX:
+def _mma_stride(cols8: int) -> int:
+    """fourier_basis.cuh's fourier_mma_stride: 8 mod 16 floats a row."""
+    return cols8 + 8 if cols8 % 16 == 0 else cols8
+
+
+def _gram_smem(kb: int, q_pad: int, rows: int) -> int:
+    """fourier_gram.cu's pass1_smem: two ring slots and the frequencies."""
+    return (2 * rows * (_mma_stride(kb) + _mma_stride(q_pad)) * 4
+            + _ceil_to(kb // 2, 64) * 4)
+
+
+@functools.lru_cache(maxsize=128)
+def gram_rows(k: int):
+    """fourier_gram's chunk height for k harmonics: the largest of
+    GRAM_ROWS whose ring holds the basis and GRAM_P_MIN columns of X
+    (64 for k <= 88), or None past 424 harmonics.  A function of k
+    alone, so the column slicing never changes a bit."""
+    kb = _ceil_to(2 * k, TILE_ROWS)
+    for rows in GRAM_ROWS:
+        if _gram_smem(kb, kb + GRAM_P_MIN, rows) <= SMEM_MAX:
+            return rows
+    return None
+
+
+@functools.lru_cache(maxsize=128)
+def gram_columns(k: int):
+    """Most columns of X one fourier_gram launch takes beside k
+    harmonics (a multiple of 8, at least GRAM_P_MIN), or None."""
+    rows = gram_rows(k)
+    if rows is None:
         return None
     kb = _ceil_to(2 * k, TILE_ROWS)
-    q_pad = kb + _ceil_to(p, TILE)
+    p = GRAM_P_MIN
+    while _gram_smem(kb, kb + p + TILE, rows) <= SMEM_MAX:
+        p += TILE
+    return p
+
+
+def gram_tiles(kb: int, q_pad: int, rows: int) -> int:
+    """Output tiles a fourier_gram warp owns: 2 where two blocks' rings
+    fit an SM, else 6."""
+    two = 2 * (_gram_smem(kb, q_pad, rows) + SMEM_BLOCK_RESERVED) <= SMEM_SM
+    return TILES_PER_WARP[0] if two else TILES_PER_WARP[1]
+
+
+def fourier_gram_table(n: int, k: int, p: int):
+    """Launch geometry of one fourier_gram launch for n TOAs, k harmonics
+    and min(p, gram_columns(k)) columns of X, or None when the card
+    cannot take k.  Returns (nb blocks along n, ny tile groups, kb padded
+    basis columns, q_pad padded columns, ntiles, threads per block); the
+    chunk height is gram_rows(k) and the tiles a warp owns gram_tiles."""
+    cols = gram_columns(k) if k >= 1 else None
+    if n < 1 or p < 1 or cols is None:
+        return None
+    kb = _ceil_to(2 * k, TILE_ROWS)
+    q_pad = kb + _ceil_to(min(p, cols), TILE)
+    rows = gram_rows(k)
     nbt, nt = kb // TILE_ROWS, q_pad // TILE
     ntiles = nbt * nt - nbt * (nbt - 1)  # row I holds tiles 2I .. nt - 1
-    ny = -(-ntiles // TILES_PER_BLOCK)
-    nb = min(-(-n // SUB), NB_MAX)
+    ny = -(-ntiles // (WARPS * gram_tiles(kb, q_pad, rows)))
+    nb = min(-(-n // rows), NB_MAX)
     return nb, ny, kb, q_pad, ntiles, THREADS
 
 
+def _apply_smem(k: int, m: int, rows: int) -> int:
+    """fourier_apply.cu's apply_smem."""
+    k4 = _ceil_to(2 * k, 4)
+    sb = k4 if k4 % 8 == 4 else k4 + 4
+    mz = 8 if m <= 8 else 16
+    return k4 * mz * 8 + rows * sb * 4 + _ceil_to(k, 64) * 4
+
+
+def apply_rows(k: int):
+    """fourier_apply's rows per block for k harmonics: 128 up to k = 64
+    (the geometry measured at the bench shape), past that the first of
+    APPLY_ROWS whose tiles take at most a quarter of the shared memory at
+    M_MAX columns, so that 4 blocks an SM keep the sincos chains in
+    flight, else the fewest, 16, where they fit; None past 598
+    harmonics.  The rows of a block change no output bit."""
+    if k <= 64:
+        return APPLY_ROWS[0]
+    for rows in APPLY_ROWS:
+        if _apply_smem(k, M_MAX, rows) <= SMEM_MAX // 4:
+            return rows
+    return APPLY_ROWS[-1] if _apply_smem(k, M_MAX, APPLY_ROWS[-1]) <= (
+        SMEM_MAX) else None
+
+
 def fourier_apply_table(n: int, k: int, m: int):
-    """Launch geometry of fourier_apply: (blocks of APPLY_ROWS rows,
-    threads per block), or None when the shape is outside the kernel's
-    design."""
-    if n < 1 or not 1 <= k <= K_MAX or not 1 <= m <= M_MAX:
+    """Launch geometry of fourier_apply: (blocks of apply_rows(k) rows,
+    threads per block) for launches of at most M_MAX columns of z, or
+    None when the card cannot take k."""
+    rows = apply_rows(k) if k >= 1 else None
+    if n < 1 or m < 1 or rows is None:
         return None
-    return -(-n // APPLY_ROWS), APPLY_THREADS
+    return -(-n // rows), APPLY_THREADS
 
 
 def basis32(t, freqs):
@@ -160,8 +251,8 @@ def _check_card(name, tensors, dims):
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 #: the C entries' ctypes signatures: pointers and the stream as c_void_p
-_GRAM_ARGS = [_VP] * 4 + [_INT] * 8 + [_VP] * 4
-_APPLY_ARGS = [_VP] * 3 + [_INT] * 5 + [_VP] * 2
+_GRAM_ARGS = [_VP] * 4 + [_INT] * 10 + [_VP] * 4
+_APPLY_ARGS = [_VP] * 3 + [_INT] * 6 + [_VP] * 2
 
 
 def _launch(dev, entry, *args):
@@ -181,13 +272,7 @@ def _gram_shape(t, freqs, w, X):
         raise ValueError(
             f"fourier_gram: row counts differ {n}, {w.shape[0]}, {X.shape[0]}"
         )
-    tab = fourier_gram_table(n, k, p)
-    if tab is None:
-        raise ValueError(
-            f"fourier_gram: (n={n}, k={k}, p={p}) is outside "
-            f"fourier_gram_table (1 <= k <= {K_MAX}, 1 <= p <= {P_MAX})"
-        )
-    return n, k, p, tab
+    return n, k, p
 
 
 def _apply_shape(t, freqs, z):
@@ -196,33 +281,53 @@ def _apply_shape(t, freqs, z):
         raise ValueError(
             f"fourier_apply: z has {z.shape[0]} rows, 2k = {2 * k}"
         )
-    tab = fourier_apply_table(n, k, m)
-    if tab is None:
-        raise ValueError(
-            f"fourier_apply: (n={n}, k={k}, m={m}) is outside "
-            f"fourier_apply_table (1 <= k <= {K_MAX}, 1 <= m <= {M_MAX})"
-        )
-    return n, k, m, tab
+    return n, k, m
+
+
+def _slices(total: int, width: int):
+    """[c0, c1) column slices of at most ``width`` columns."""
+    return [(c, min(c + width, total)) for c in range(0, total, width)]
 
 
 def fourier_gram_cuda(t, freqs, w, X, precision: str = "highest"):
-    """Launch ``csrc/fourier_gram.cu`` on f64 tensors on one card."""
+    """Launch ``csrc/fourier_gram.cu`` on f64 tensors on one card: one
+    launch per slice of at most gram_columns(k) columns of X; Sigma is
+    the first launch's (every launch computes the same bits).  Shapes the
+    card cannot take raise before the device is looked at."""
     check_precision("fourier_gram", precision)
-    dev = _check_card("fourier_gram_cuda", (t, freqs, w, X), (1, 1, 1, 2))
-    n, k, p, (nb, ny, kb, q_pad, ntiles, threads) = _gram_shape(t, freqs, w, X)
-    partial = torch.empty(nb * ntiles * TILE_ROWS * TILE, dtype=F64,
-                          device=dev)
-    sig = torch.empty((2 * k, 2 * k), dtype=F64, device=dev)
-    twx = torch.empty((2 * k, p), dtype=F64, device=dev)
-    launch = c_entry("fourier_gram", _GRAM_ARGS)
-    err = _launch(dev, launch, t.data_ptr(), freqs.data_ptr(), w.data_ptr(),
-                  X.data_ptr(), n, k, p, kb, q_pad, nb, ny, threads,
-                  partial.data_ptr(), sig.data_ptr(), twx.data_ptr())
-    if err != 0:
-        raise RuntimeError(
-            f"fourier_gram kernel launch failed: cudaError {err}"
+    n, k, p = _gram_shape(t, freqs, w, X)
+    if fourier_gram_table(n, k, p) is None:
+        raise ValueError(
+            f"fourier_gram: (n={n}, k={k}, p={p}) is outside "
+            "fourier_gram_table (k <= 424 harmonics on the card)"
         )
-    fourier_gram_cuda.launches += 1
+    width = gram_columns(k)
+    dev = _check_card("fourier_gram_cuda", (t, freqs, w, X), (1, 1, 1, 2))
+    launch = c_entry("fourier_gram", _GRAM_ARGS)
+    rows = gram_rows(k)
+    sig = None
+    twx = torch.empty((2 * k, p), dtype=F64, device=dev)
+    for c0, c1 in _slices(p, width):
+        Xs = X if (c0, c1) == (0, p) else X[:, c0:c1].contiguous()
+        nb, ny, kb, q_pad, ntiles, threads = fourier_gram_table(n, k, c1 - c0)
+        partial = torch.empty(nb * ntiles * TILE_ROWS * TILE, dtype=F64,
+                              device=dev)
+        s = torch.empty((2 * k, 2 * k), dtype=F64, device=dev)
+        tw = twx if Xs is X else torch.empty((2 * k, c1 - c0), dtype=F64,
+                                             device=dev)
+        err = _launch(dev, launch, t.data_ptr(), freqs.data_ptr(),
+                      w.data_ptr(), Xs.data_ptr(), n, k, c1 - c0, kb, q_pad,
+                      nb, ny, threads, rows, gram_tiles(kb, q_pad, rows),
+                      partial.data_ptr(), s.data_ptr(), tw.data_ptr())
+        if err != 0:
+            raise RuntimeError(
+                f"fourier_gram kernel launch failed: cudaError {err}"
+            )
+        fourier_gram_cuda.launches += 1
+        if tw is not twx:
+            twx[:, c0:c1] = tw
+        if sig is None:
+            sig = s
     return sig, twx
 
 
@@ -230,19 +335,36 @@ fourier_gram_cuda.launches = 0
 
 
 def fourier_apply_cuda(t, freqs, z, precision: str = "highest"):
-    """Launch ``csrc/fourier_apply.cu`` on f64 tensors on one card."""
+    """Launch ``csrc/fourier_apply.cu`` on f64 tensors on one card: one
+    launch per slice of at most M_MAX columns of z.  Shapes the card
+    cannot take raise before the device is looked at."""
     check_precision("fourier_apply", precision)
-    dev = _check_card("fourier_apply_cuda", (t, freqs, z), (1, 1, 2))
-    n, k, m, (blocks, threads) = _apply_shape(t, freqs, z)
-    y = torch.empty((n, m), dtype=F32, device=dev)
-    launch = c_entry("fourier_apply", _APPLY_ARGS)
-    err = _launch(dev, launch, t.data_ptr(), freqs.data_ptr(), z.data_ptr(),
-                  n, k, m, blocks, threads, y.data_ptr())
-    if err != 0:
-        raise RuntimeError(
-            f"fourier_apply kernel launch failed: cudaError {err}"
+    n, k, m = _apply_shape(t, freqs, z)
+    tab = fourier_apply_table(n, k, m)
+    if tab is None:
+        raise ValueError(
+            f"fourier_apply: (n={n}, k={k}, m={m}) is outside "
+            "fourier_apply_table (k <= 598 harmonics on the card)"
         )
-    fourier_apply_cuda.launches += 1
+    blocks, threads = tab
+    dev = _check_card("fourier_apply_cuda", (t, freqs, z), (1, 1, 2))
+    launch = c_entry("fourier_apply", _APPLY_ARGS)
+    rows = apply_rows(k)
+    y = torch.empty((n, m), dtype=F32, device=dev)
+    for c0, c1 in _slices(m, M_MAX):
+        zs = z if (c0, c1) == (0, m) else z[:, c0:c1].contiguous()
+        ys = y if zs is z else torch.empty((n, c1 - c0), dtype=F32,
+                                           device=dev)
+        err = _launch(dev, launch, t.data_ptr(), freqs.data_ptr(),
+                      zs.data_ptr(), n, k, c1 - c0, blocks, threads, rows,
+                      ys.data_ptr())
+        if err != 0:
+            raise RuntimeError(
+                f"fourier_apply kernel launch failed: cudaError {err}"
+            )
+        fourier_apply_cuda.launches += 1
+        if ys is not y:
+            y[:, c0:c1] = ys
     return y
 
 
@@ -252,7 +374,7 @@ fourier_apply_cuda.launches = 0
 def fourier_gram(t, freqs, w, X, precision: str = "highest"):
     """(Sigma (2k, 2k), TWX (2k, p)) f64 for T = [sin | cos](2 pi f t)
     without materializing T: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors.  Shapes outside fourier_gram_table raise."""
+    kernel for CUDA tensors."""
     _gram_shape(t, freqs, w, X)
     if t.device.type == "cpu":
         return fourier_gram_plain(t, freqs, w, X, precision)

@@ -16,14 +16,18 @@ f64 sums free at this kernel's bytes bound (PERF.md).
   chunks).
 - :func:`fused_gram_joint_cuda` launches ``csrc/fused_gram_joint.cu``
   (bulk copies into a ring of shared stages, f64 MMA, two passes,
-  fixed-order f64 reduction, bitwise reproducible) and counts its
-  launches in ``fused_gram_joint_cuda.launches``.
+  fixed-order f64 reduction, bitwise reproducible) for q = k + p1 <= 80,
+  and ``csrc/fused_gram_wide.cu`` (128-column panel pairs, plain loads,
+  the same contract) for wider Y; it counts its launches in
+  ``fused_gram_joint_cuda.launches``, those of the wide path also in
+  ``fused_gram_joint_cuda.wide_launches``.
 - :func:`fused_gram_joint` dispatches on where the tensors lie: the
   plain version for CPU tensors, the kernel for CUDA tensors, and no
   fallback between them.
-- :func:`fused_block_table` says, from the shapes alone, whether the
-  kernel's shared-memory design takes them; ``fitting/gls.py::_joint_gram``
-  routes shapes outside it to ``gram32_joint``.
+- :func:`fused_block_table` says, from the shapes alone, which path
+  takes them: it admits exactly the shapes the reference's table admits
+  (pad128(k) + pad128(p1) <= 640), and ``fitting/gls.py::_joint_gram``
+  routes only the others to ``gram32_joint``, as the reference does.
 """
 
 from __future__ import annotations
@@ -48,12 +52,24 @@ TILE_ROWS, TILE_COLS = 16, 8
 NB_MAX = 132
 #: threads per pass-1 block: 8 MMA warps and 8 converter warps
 THREADS = 512
-#: most columns k + p1 the kernel takes: three raw stages and two f64 Y
+#: most columns k + p1 of the narrow path: two raw stages and two f64 Y
 #: tiles of 64 rows fit in shared memory, and its 30 output tiles fit 8
-#: warps of at most 4 tiles each
+#: warps of at most 6 tiles each
 Q_MAX = 80
 #: the bulk copies need 16-byte aligned spans
 ALIGN = 16
+#: the wide path (q > Q_MAX): columns per panel, rows per chunk, threads
+#: per pass-1 block, and the most pass-1 blocks (two waves of one block
+#: per SM), which the panel pairs share out as row blocks
+PANEL = 128
+WIDE_ROWS = 32
+WIDE_THREADS = 512
+WIDE_BLOCKS = 264
+#: the reference's block table (pint_tpu/ops/pallas_fit.py:96): k and p1
+#: each padded to 128 lanes, the two together at most 640 (its budget of
+#: 3 q^2 f32 accumulators in half of a 10 MiB VMEM)
+REF_LANES = 128
+REF_Q_MAX = 640
 
 
 def fused_tile_count(q: int) -> int:
@@ -63,14 +79,28 @@ def fused_tile_count(q: int) -> int:
     return nbt * nt - nbt * (nbt - 1)
 
 
+def _pad(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
 def fused_block_table(n: int, k: int, p1: int):
-    """Launch geometry of the kernel for T (n, k), A (n, p1), or None
-    when the shape is outside its design.  A pure function of the shapes.
-    Returns (nb blocks, q_pad = Y's padded width, threads per block)."""
-    if not (1 <= n < 2**31 and k >= 1 and p1 >= 1 and k + p1 <= Q_MAX):
+    """Launch geometry for T (n, k), A (n, p1), or None when the
+    reference's table refuses the shape (pad128(k) + pad128(p1) > 640).
+    A pure function of the shapes.  Returns (nb, q_pad, threads): for
+    q = k + p1 <= Q_MAX the narrow path's (pass-1 blocks, Y's width in
+    16-column bands, 512); wider, the wide path's (row blocks, Y's width
+    in 128-column panels, 512)."""
+    if not (1 <= n < 2**31 and k >= 1 and p1 >= 1):
         return None
-    q_pad = -(-(k + p1) // TILE_ROWS) * TILE_ROWS
-    return min(-(-n // ROWS), NB_MAX), q_pad, THREADS
+    if _pad(k, REF_LANES) + _pad(p1, REF_LANES) > REF_Q_MAX:
+        return None
+    q = k + p1
+    if q <= Q_MAX:
+        return min(-(-n // ROWS), NB_MAX), _pad(q, TILE_ROWS), THREADS
+    npan = -(-q // PANEL)
+    pairs = npan * (npan + 1) // 2
+    return (min(-(-n // WIDE_ROWS), max(1, WIDE_BLOCKS // pairs)),
+            npan * PANEL, WIDE_THREADS)
 
 
 def fused_gram_joint_plain(T32, A, w, precision: str = "highest"):
@@ -128,13 +158,18 @@ def fused_gram_joint_cuda(T, A, w, precision: str = "highest"):
     if dev.type != "cuda" or A.device != dev or w.device != dev:
         raise ValueError("fused_gram_joint_cuda: T, A, w must be on one card")
     nb, q_pad, threads = tab
-    partial = torch.empty(nb * fused_tile_count(k + p1) * TILE_ROWS
-                          * TILE_COLS, dtype=F64, device=dev)
+    wide = k + p1 > Q_MAX
+    if wide:
+        npan = q_pad // PANEL
+        scratch = nb * (npan * (npan + 1) // 2) * PANEL * PANEL
+    else:
+        scratch = nb * fused_tile_count(k + p1) * TILE_ROWS * TILE_COLS
+    partial = torch.empty(scratch, dtype=F64, device=dev)
     gtt = torch.empty((k, k), dtype=F64, device=dev)
     gta = torch.empty((k, p1), dtype=F64, device=dev)
     gaa = torch.empty((p1, p1), dtype=F64, device=dev)
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch = c_entry("fused_gram_joint",
+    launch = c_entry("fused_gram_wide" if wide else "fused_gram_joint",
                      [p, i, p, p, i, i, i, i, i, i, p, p, p, p, p])
     with torch.cuda.device(dev):
         err = launch(
@@ -147,10 +182,12 @@ def fused_gram_joint_cuda(T, A, w, precision: str = "highest"):
         raise RuntimeError(f"fused_gram_joint kernel launch failed: "
                            f"cudaError {err}")
     fused_gram_joint_cuda.launches += 1
+    fused_gram_joint_cuda.wide_launches += wide
     return gtt, gta, gaa
 
 
 fused_gram_joint_cuda.launches = 0
+fused_gram_joint_cuda.wide_launches = 0
 
 
 def fused_gram_joint(T32, A, w, precision: str = "highest"):

@@ -2,7 +2,9 @@
 
 Counterpart of ``pint_tpu/ops/taylor.py``: sum_i coeffs[i] * x^i / i! by
 Horner's rule, with dt a DD and DD accumulation so that F0*dt keeps
-cycle-level exactness at 1e12 cycles.  Coefficients are f64 scalars or DD.
+cycle-level exactness at 1e12 cycles.  Coefficients are f64 scalars or
+DD; the plain-f64 variants serve small-magnitude series (DM(t), orbital
+frequencies).
 """
 
 from __future__ import annotations
@@ -51,4 +53,19 @@ def taylor_horner(dt, coeffs: Sequence):
     acc = torch.zeros_like(dt)
     for i in reversed(range(len(coeffs))):
         acc = acc * dt + coeffs[i] / float(math.factorial(i))
+    return acc
+
+
+def taylor_horner_deriv(dt, coeffs: Sequence, deriv_order: int = 1):
+    """Plain-f64 d^n/dt^n of taylor_horner (the orbital frequency of an
+    FBn series): coefficients shifted by n and divided by i!, then
+    Horner's rule, as the reference."""
+    n = deriv_order
+    if len(coeffs) <= n:
+        return torch.zeros_like(dt)
+    shifted = [coeffs[i + n] / float(math.factorial(i))
+               for i in range(len(coeffs) - n)]
+    acc = torch.zeros_like(dt)
+    for c in reversed(shifted):
+        acc = acc * dt + c
     return acc

@@ -237,25 +237,38 @@ def test_fourier_gram_weights_zero_padding():
 
 
 def test_fourier_shape_table_and_refusals():
-    """The shape table takes k <= 64 and p, m <= 16; any other shape, and
-    the unported precision rungs, raise before any launch."""
+    """The shape tables keep the bench shape's geometry and take every p
+    and m (one launch per slice of gram_columns(k) or M_MAX columns) and
+    k up to what the card's shared memory holds, with 6 tiles a warp
+    where one block fills an SM (k = 64, p = 16: 2 tile groups); the CUDA
+    wrappers refuse wider k, and the unported precision rungs, before any
+    launch, while the dispatchers' CPU route takes every shape."""
     assert fourier.fourier_gram_table(100_000, 30, 7) == (
         264, 1, 64, 72, 24, 384)
     assert fourier.fourier_gram_table(1000, 5, 3)[0] == 16  # ceil(n / 64)
-    assert fourier.fourier_gram_table(10, 64, 16)[1:5] == (4, 128, 144, 88)
-    assert fourier.fourier_gram_table(10, 65, 7) is None
-    assert fourier.fourier_gram_table(10, 30, 17) is None
+    assert fourier.fourier_gram_table(10, 64, 16)[1:5] == (2, 128, 144, 88)
+    assert fourier.fourier_gram_table(10, 65, 7) is not None
+    assert fourier.fourier_gram_table(10, 30, 17) is not None
+    assert fourier.fourier_gram_table(10, 425, 7) is None
     assert fourier.fourier_apply_table(1000, 64, 16) == (8, 256)
     assert fourier.fourier_apply_table(100_000, 30, 8) == (782, 256)
-    assert fourier.fourier_apply_table(1000, 12, 17) is None
+    assert fourier.fourier_apply_table(1000, 12, 17) == (8, 256)
+    assert fourier.fourier_apply_table(1000, 599, 3) is None
     t = torch.linspace(0.0, 1e8, 50, dtype=torch.float64)
-    f = torch.arange(1, 66, dtype=torch.float64) / 1e8
+    f = torch.arange(1, 426, dtype=torch.float64) / 1e8
     w = torch.ones(50, dtype=torch.float64)
     with pytest.raises(ValueError, match="outside fourier_gram_table"):
-        fourier.fourier_gram(t, f, w, torch.ones((50, 3), dtype=torch.float64))
+        fourier.fourier_gram_cuda(t, f, w, torch.ones((50, 3),
+                                                      dtype=torch.float64))
+    f599 = torch.arange(1, 600, dtype=torch.float64) / 1e8
     with pytest.raises(ValueError, match="outside fourier_apply_table"):
-        fourier.fourier_apply(t, f[:4], torch.ones((8, 17),
-                                                   dtype=torch.float64))
+        fourier.fourier_apply_cuda(t, f599, torch.ones((1198, 3),
+                                                       dtype=torch.float64))
+    sig, twx = fourier.fourier_gram(t, f[:65], w,
+                                    torch.ones((50, 17), dtype=torch.float64))
+    assert sig.shape == (130, 130) and twx.shape == (130, 17)
+    assert fourier.fourier_apply(t, f[:4], torch.ones(
+        (8, 17), dtype=torch.float64)).shape == (50, 17)
     with pytest.raises(ValueError, match="not ported"):
         fourier.fourier_gram(t, f[:4], w, torch.ones((50, 3),
                                                      dtype=torch.float64),

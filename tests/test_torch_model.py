@@ -185,8 +185,8 @@ def test_state_round_trips_reference_values(ref):
                 assert g == v, n
 
 
-@pytest.mark.parametrize("line", ["BINARY ELL1", "DMX_0001 0.1 1",
-                                  "JUMP -f L-wide 0.1", "UNITS TCB"])
+@pytest.mark.parametrize("line", ["NE_SW 7.9 1", "GLEP_1 55000",
+                                  "WAVE_OM 0.005", "UNITS TCB"])
 def test_get_model_rejects_unported_lines(line):
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         get_model(BENCH_PAR + line + "\n")

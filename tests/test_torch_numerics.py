@@ -347,17 +347,22 @@ def test_fused_gram_f64_basis_is_cast_in_place():
 
 def test_fused_block_table():
     """Pure function of the shapes; the bench shape and golden13's k = 1
-    empty basis are inside, columns past the shared-memory design out.
-    One persistent block per SM (132), 64-row chunks, Y padded to whole
-    16-column bands."""
+    empty basis are on the narrow path (one persistent block per SM, 132,
+    64-row chunks, Y padded to whole 16-column bands), q = k + p1 > 80 on
+    the wide path (64-column panels, row blocks from the panel pairs),
+    and only what the reference's table refuses (pad128(k) + pad128(p1)
+    > 640) is out."""
     tab = fused_block_table(100_000, 60, 7)
     assert tab == fused_block_table(100_000, 60, 7)
     nb, q_pad, threads = tab
     assert q_pad == 80 and threads == 512 and nb == 132
     assert fused_block_table(92, 1, 9) == (2, 16, 512)
     assert fused_block_table(1000, 1, 3)[1] == 16
-    assert fused_block_table(10, 72, 8) is not None
-    assert fused_block_table(10, 73, 8) is None
+    assert fused_block_table(10, 72, 8) == (1, 80, 512)
+    assert fused_block_table(10, 73, 8) == (1, 128, 512)
+    assert fused_block_table(100_000, 60, 169) == (88, 256, 512)
+    assert fused_block_table(100_000, 128, 512) == (17, 640, 512)
+    assert fused_block_table(100_000, 129, 512) is None
     assert fused_block_table(0, 60, 7) is None
 
 
@@ -405,9 +410,9 @@ def _refusal_cases():
         ("T strided", (T[:, ::2], A, w), ValueError, "contiguous"),
         ("T 8 bytes off", (flat[1:4001].reshape(1000, 4), A, w), ValueError,
          "16-byte"),
-        ("q = 81", (torch.zeros(1000, 73, dtype=F64), torch.zeros(1000, 8,
-                                                               dtype=F64),
-                    w), ValueError, "outside fused_block_table"),
+        ("q = 641", (torch.zeros(1000, 129, dtype=F64),
+                     torch.zeros(1000, 512, dtype=F64), w), ValueError,
+         "outside fused_block_table"),
         ("n = 0", (T[:0], A[:0], w[:0]), ValueError,
          "outside fused_block_table"),
     ]

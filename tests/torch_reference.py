@@ -57,6 +57,18 @@ def gram_inputs(n, k, p1=7, seed=0):
     return T, A, w
 
 
+def fourier_inputs(n, k, p, seed=5):
+    """Times t (n,) over 3e8 s, harmonic frequencies (k,), weights (n,)
+    and columns X (n, p) for the wide Fourier-kernel cases."""
+    rng = np.random.default_rng(seed + n + k + p)
+    tspan = 3.0e8
+    t = np.sort(rng.uniform(0, tspan, n))
+    freqs = np.arange(1, k + 1) / tspan
+    w = rng.uniform(0.5, 2.0, n)
+    X = rng.normal(size=(n, p))
+    return t, freqs, w, X
+
+
 def dd_inputs():
     """Double-double operands (a + la, b + lb) over twenty decades."""
     rng = np.random.default_rng(7)
@@ -113,7 +125,7 @@ def export_state(cm, prefix):
             OUT[f"{{prefix}}/ref/{{n}}"] = np.array([v], float)
     comps = []
     for c in cm.model._ordered_components():
-        spec = {{"name": type(c).__name__}}
+        spec = {{"name": type(c).__name__, "params": list(c.params)}}
         if c.mask_params:
             spec["masks"] = list(c.mask_params)
         comps.append(spec)
