@@ -60,15 +60,18 @@ Phases, each of which raises on failure (exit code != 0):
    ``torch.cuda.max_memory_allocated``; the mixed and the fourier step
    from the par values at the step gates of the f64 step; the card
    against the CPU on a 2048-TOA copy with 12 DMX ranges, simulated as
-   bench.py's pulsar is (1e-11 s, 1e-8); every kernel against its plain version at the wide shapes
+   bench.py's pulsar is (1e-11 s, 1e-8), and on a copy simulated as the
+   1e5-TOA MSP is (orbit inside the phases), their f64 steps' gap printed
+   in units of each parameter's sigma; every kernel against its plain version at the wide shapes
    (``fused_gram_joint`` at q = 229 and 228 with T in f64 and f32, at
    the reference's widest k = 128 with p1 = 512, and at a ragged n with
    q = 231, T in f64 and f32; ``fourier_gram`` at k = 30 and 100 with
    p = 169, and each of three slices of 16 or 9 columns of X alone, bitwise
    equal to the same columns of the one launch;
    ``fourier_apply`` at k = 100 with m = 40 and the basis bit for bit at
-   k = 100); the wide shapes timed as in 5; one mixed, f64 and fourier
-   step on the host clock, and one mixed step under torch.profiler.
+   k = 100); the wide shapes timed as in 5, and ``fused_gram_joint`` at
+   the reference's widest q = 640; one mixed, f64 and fourier step on the
+   host clock, and one mixed step under torch.profiler.
 
 The last three lines are the kernels JSON (each kernel at the binary
 MSP's shapes, with its launches in the MSP's fits, and under ``bench``
@@ -94,7 +97,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from pint_tpu_torch.fitting.base import design_with_offset  # noqa: E402
+from pint_tpu_torch.fitting.base import design_with_offset, noffset  # noqa: E402
 from pint_tpu_torch.fitting.gls import (  # noqa: E402
     GLSFitter,
     _column_norms,
@@ -517,6 +520,12 @@ def msp_phases(dev, rng):
     # the step held to 1e-8 is a large one, as bench.py's pulsar's
     card_vs_cpu("msp", msp_par(MSP_SMALL["ndmx"], seed=0),
                 MSP_SMALL["ntoa"], {"freqs": MSP_FREQS})
+    # and a copy simulated as the 1e5-TOA MSP is (orbit inside the
+    # phases, so the step from the par values is noise-sized): the card's
+    # f64 step against the CPU's in units of each parameter's sigma
+    r4 = sigma_gap("msp in-phase copy", msp_par(MSP_SMALL["ndmx"], seed=0),
+                   MSP_SMALL["ntoa"], MSP_SIM)
+    log(f"msp in-phase copy: {r4}")
 
     def odd(*shape):
         return torch.as_tensor(rng.standard_normal(shape), device=dev)
@@ -586,6 +595,17 @@ def msp_phases(dev, rng):
         lambda: torch.matmul(Ys.T, Ys))
     pass_times(times["fused_gram_joint"], "wide_")
     bounds["fused_gram_joint"] = gram_bound(T, A, w)
+    # the reference's widest shape, q = 640
+    T6, A6, w6 = odd(n, 128), odd(n, 512), weights(n)
+    q640 = dict(ms=cuda_ms(lambda: fused_gram.fused_gram_joint_cuda(T6, A6,
+                                                                   w6)))
+    q640["device_ms"], parts = device_ms(
+        lambda: fused_gram.fused_gram_joint_cuda(T6, A6, w6))
+    q640["device_parts"] = {k_[:40]: v for k_, v in parts.items()}
+    pass_times(q640, "wide_")
+    del q640["device_parts"]
+    q640["bound_ms"] = gram_bound(T6, A6, w6)[0]
+    times["fused_gram_joint"]["q640"] = q640
     Tf = fourier.basis32(ft, ff)
     Yf = (torch.cat([Tf, fX.float()], dim=1)
           * torch.sqrt(fw).float()[:, None]).double().contiguous()
@@ -620,7 +640,7 @@ def msp_phases(dev, rng):
         f"{ {m: NTOA / (v / 1e3) for m, v in steps.items()} }")
     profile_step(cm, x, "mixed")
     return dict(launches=launches, errs=errs, times=times, bounds=bounds,
-                shapes=shapes, gates=gates, steps=steps)
+                shapes=shapes, gates=gates, steps=steps, r4=r4)
 
 
 def card_vs_cpu(label, par, ntoa, sim):
@@ -656,6 +676,34 @@ def card_vs_cpu(label, par, ntoa, sim):
     check(dstep <= 1e-8, f"card f64 step differs from the CPU by {dstep}")
     check(fdx <= 1e-8 and fchi <= 1e-8,
           f"card fourier step differs from the CPU by dx {fdx}, chi2 {fchi}")
+
+
+def sigma_gap(label, par, ntoa, sim):
+    """The card's f64 step against the CPU's on a small copy of a pulsar,
+    in units of each parameter's sigma (the square root of the CPU step's
+    covariance diagonal), printed for every parameter; -> the largest gap,
+    its parameter, and the gap relative to the step's largest component
+    (what card_vs_cpu gates)."""
+    got = {}
+    for d in ("cpu", "cuda"):
+        m, t = make_test_pulsar(par, ntoa=ntoa, device="cpu", **{**SIM, **sim})
+        c = m.compile(t, device=d)
+        xs = c.x0()
+        dx, (covn, norm), _, _ = gls_step_woodbury(*step_inputs(c, xs),
+                                                   normalized_cov=True)
+        got[d] = (dx.cpu(), (torch.sqrt(torch.diagonal(covn)) / norm).cpu(),
+                  ["offset"] * noffset(c) + list(c.free_names))
+    (dx_g, _, names), (dx_c, sig, _) = got["cuda"], got["cpu"]
+    gap = torch.abs(dx_g - dx_c) / sig
+    order = torch.argsort(gap, descending=True).tolist()
+    log(f"{label}: card vs cpu f64 step at {ntoa} TOAs in sigma units, "
+        f"every parameter (largest first): "
+        f"{ {names[i]: float(gap[i]) for i in order} }")
+    log(f"{label}: step in sigma units, largest |dx|/sigma "
+        f"{float(torch.max(torch.abs(dx_c) / sig))!r}")
+    worst = order[0]
+    return dict(max_gap_sigma=float(gap[worst]), worst=names[worst],
+                rel=rel(dx_g, dx_c))
 
 
 def main():
@@ -878,6 +926,7 @@ def main():
     rows[0]["wide_source"] = "pint_tpu_torch/csrc/fused_gram_wide.cu"
     rows[0]["msp_step_ms"] = msp["steps"]
     rows[0]["msp_vs_f64"] = msp["gates"]
+    rows[0]["msp_in_phase_card_vs_cpu"] = msp["r4"]
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -53,13 +53,13 @@
 // On the card pass 1 is bound by the MMA warps, at about twice their
 // tensor-core floor, and not by the copies (profiling/
 // torch_fused_gram_split.py, PERF.md); ptxas gives pass 1 124 registers
-// and no spills.  Every mbarrier
-// wait gives up with __trap() after ~1 s, so a phase error comes back as a
-// launch failure, not a hung card.
+// and no spills.  The copy-ring helpers are bulk_copy.cuh's, shared with
+// fused_gram_wide.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
 #include "mma_f64.cuh"
 
 #define ROWS 64               // rows per chunk
@@ -147,57 +147,6 @@ __host__ __device__ constexpr bool pair_live(int w, int p) {
   return w == 6 || (w == 3 ? p >= 1 : (w == 4 || w == 5) ? p == 1 : p < 2);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Waits for the completion of the mbarrier phase of parity `parity`.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 31)) __trap();  // ~1 s: a phase error
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n .reg .b64 state;\n"
-      " mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
-          smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t tx) {
-  asm volatile(
-      "{\n .reg .b64 state;\n"
-      " mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::"r"(
-          smem_addr(bar)),
-      "r"(tx)
-      : "memory");
-}
-
-// `bytes` (a multiple of 16) from global `src` to shared `dst`, both
-// 16-byte aligned, completing on `bar`
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :
-      : "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // The Y-tile handoff between converter and MMA warps: named barriers
 // 1 + b ("tile b is whole") and 1 + YTILES + b ("tile b is free"), each
 // counting both groups: one group arrives, the other waits.
@@ -267,33 +216,16 @@ struct FusedBlock {
     }
     if (threadIdx.x == 0) {
       for (int s = 0; s < STAGES; ++s) {
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                         smem_addr(full + s))
-                     : "memory");
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                         smem_addr(empty + s)),
-                     "n"(GROUP * 32)
-                     : "memory");
+        mbar_init(full + s, 1);
+        mbar_init(empty + s, GROUP * 32);
       }
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      mbar_fence_init();
     }
   }
 
   __device__ __forceinline__ int rows_of(int it) const {
     const long r0 = (c0 + it) * ROWS;
     return n - r0 < ROWS ? (int)(n - r0) : ROWS;
-  }
-
-  // The part of `bytes` of global `src` past its 16-byte body (< 16 bytes,
-  // only in the last chunk) into shared `dst` by plain loads.  Returns the
-  // body's size, which produce() brings by one bulk copy.
-  template <typename E>
-  __device__ __forceinline__ uint32_t span(unsigned char* dst, const E* src,
-                                           int bytes) const {
-    const int body = bytes & ~15;
-    for (int b = body; b < bytes; b += (int)sizeof(E))
-      *reinterpret_cast<E*>(dst + b) = src[b / (int)sizeof(E)];
-    return (uint32_t)body;
   }
 
   // The producer lane: chunk `it` into its stage once the stage is free.
@@ -309,8 +241,9 @@ struct FusedBlock {
     const int tbytes = rows * k * (int)sizeof(TT), abytes = rows * p1 * 8,
               wbytes = rows * 8;
     // the tails' plain stores come before the arrive, which releases them
-    const uint32_t tx = span(st, Tc, tbytes) + span(st + tb, Ac, abytes) +
-                        span(st + tb + ab, wc, wbytes);
+    const uint32_t tx = bulk_tail(st, Tc, tbytes) +
+                        bulk_tail(st + tb, Ac, abytes) +
+                        bulk_tail(st + tb + ab, wc, wbytes);
     mbar_arrive_tx(full + s, tx);
     if (tbytes >= 16) bulk_copy(st, Tc, tbytes & ~15, full + s);
     if (abytes >= 16) bulk_copy(st + tb, Ac, abytes & ~15, full + s);

@@ -89,7 +89,6 @@ def _finish_normal_eqs(A, b, r_cinv_r, norm, normalized_cov=False,
         X = chol_solve_ir(
             A, torch.cat([b[:, None], torch.eye(p, dtype=F64, device=dev)],
                          dim=1),
-            cholesky=solve_policy.ir_cholesky(p, dev),
             check_rtol=solve_policy.check_rtol(dev),
         )
         dxn = X[:, 0]
@@ -151,11 +150,7 @@ def _woodbury_mixed_tail(G_XX, sig_tt, twx, phi, norm,
     b_white = G_XX[:-1, -1]
     r_Nr = G_XX[-1, -1]
     Sigma = torch.diag(1.0 / phi) + sig_tt
-    corr = chol_solve_ir(
-        Sigma, twx,
-        cholesky=solve_policy.ir_cholesky(Sigma.shape[0], dev),
-        check_rtol=solve_policy.check_rtol(dev),
-    )
+    corr = chol_solve_ir(Sigma, twx, check_rtol=solve_policy.check_rtol(dev))
     A = A_white - twx[:, :-1].T @ corr[:, :-1]
     b = -(b_white - twx[:, :-1].T @ corr[:, -1])
     r_cinv_r = r_Nr - torch.dot(twx[:, -1], corr[:, -1])

@@ -104,10 +104,18 @@ def c_entry(name: str, argtypes):
     return fn
 
 
+#: the reference kernels' precision rungs (their MXU pass ladder)
+PRECISIONS = ("highest", "high", "default")
+
+
 def check_precision(name: str, precision: str):
-    """Only the ``'highest'`` rung of the reference's kernels is ported."""
-    if precision != "highest":
+    """The reference kernels take ``precision='highest'|'high'|'default'``,
+    the bf16 pass ladder of the TPU's matrix unit.  The port's kernels and
+    plain versions take the three names and compute the same values for
+    each: exact products of the f32 operands summed in f64, at least as
+    accurate as the reference's ``'highest'``.  Any other name raises."""
+    if precision not in PRECISIONS:
         raise ValueError(
-            f"{name}: precision={precision!r} is not ported; only the "
-            "'highest' rung the GLS step uses is"
+            f"{name}: unknown precision={precision!r}; expected one of "
+            f"{PRECISIONS}"
         )

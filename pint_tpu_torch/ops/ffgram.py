@@ -105,20 +105,19 @@ def _check_poison(X, Req, Beq, check_rtol):
     return torch.where(ok, X, torch.full_like(X, float("nan")))
 
 
-def chol_solve_ir(A, B, refine: int = 2, cholesky=None, check_rtol=None):
+def chol_solve_ir(A, B, refine: int = 2, check_rtol=None):
     """Solve SPD A X = B (f64) with an f32 Cholesky + f64 iterative
     refinement.  Jacobi equilibration first (power-law Woodbury matrices
     have ~1e10 dynamic range on the diagonal, beyond an f32 Cholesky);
     ``refine`` residual-correction passes then recover f64-grade accuracy.
-    ``cholesky`` swaps the factorization; ``check_rtol`` (None = no check)
-    arms the post-refinement residual check."""
-    if cholesky is None:
-        cholesky = nan_cholesky
+    The factor is the native one at every size (ops/solve_policy.py);
+    ``check_rtol`` (None = no check) arms the post-refinement residual
+    check."""
     d = torch.sqrt(torch.diagonal(A))
     dinv = 1.0 / d
     Aeq = A * torch.outer(dinv, dinv)
     Beq = B * dinv[:, None]
-    L32 = cholesky(Aeq.to(F32))
+    L32 = nan_cholesky(Aeq.to(F32))
 
     def solve32(R):
         Y = torch.linalg.solve_triangular(L32, R.to(F32), upper=False)

@@ -44,8 +44,10 @@ others and the chunk height (:func:`gram_rows`) depends on k alone, so a
 sliced call gives the bits of one wider launch.  The card takes every p
 and m, and k up to the harmonics whose basis tile fits shared memory
 (424 for fourier_gram, 598 for fourier_apply); the plain versions take
-every shape.  Only the ``precision='highest'`` rung is ported.  The reference's TPU tile argument ``block`` is not part of
-these signatures: the kernels choose their own geometry.
+every shape.  ``precision`` takes the reference's three rungs, each
+computing the same values (``_cuda_build.check_precision``).  The
+reference's TPU tile argument ``block`` is not part of these
+signatures: the kernels choose their own geometry.
 """
 
 from __future__ import annotations

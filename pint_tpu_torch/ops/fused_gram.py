@@ -5,7 +5,8 @@ w)`` returns (G_TT (k, k), G_TA (k, p1), G_AA (p1, p1)) in f64 for
 G = Y^T Y, Y = [f32(T) | f32(A)] * f32(sqrt(w)): T the noise basis, A the
 column-normalized design matrix with the residual as last column, w the
 inverse white variances.  Y holds the reference's f32 values (its
-``'highest'`` rung: exact products of f32 operands); their products are
+``'highest'`` rung: exact products of f32 operands, which every rung of
+``precision`` computes here); their products are
 summed in f64, where the TPU kernel summed 128-row sub-chunks in f32.  The
 f32 sums put the mixed step's covariance 1.4e-2 off the f64 step at 1e5
 TOAs on an H100, past the 5e-3 gate, and the card's native f64 makes the
@@ -17,8 +18,9 @@ f64 sums free at this kernel's bytes bound (PERF.md).
 - :func:`fused_gram_joint_cuda` launches ``csrc/fused_gram_joint.cu``
   (bulk copies into a ring of shared stages, f64 MMA, two passes,
   fixed-order f64 reduction, bitwise reproducible) for q = k + p1 <= 80,
-  and ``csrc/fused_gram_wide.cu`` (128-column panel pairs, plain loads,
-  the same contract) for wider Y; it counts its launches in
+  and ``csrc/fused_gram_wide.cu`` (the same pipeline with G's tiles split
+  into balanced tile groups, :func:`wide_geometry`; the same contract) for
+  wider Y; it counts its launches in
   ``fused_gram_joint_cuda.launches``, those of the wide path also in
   ``fused_gram_joint_cuda.wide_launches``.
 - :func:`fused_gram_joint` dispatches on where the tensors lie: the
@@ -33,7 +35,9 @@ f64 sums free at this kernel's bytes bound (PERF.md).
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from pint_tpu_torch.ops._cuda_build import c_entry, check_precision
@@ -58,13 +62,25 @@ THREADS = 512
 Q_MAX = 80
 #: the bulk copies need 16-byte aligned spans
 ALIGN = 16
-#: the wide path (q > Q_MAX): columns per panel, rows per chunk, threads
-#: per pass-1 block, and the most pass-1 blocks (two waves of one block
-#: per SM), which the panel pairs share out as row blocks
-PANEL = 128
-WIDE_ROWS = 32
-WIDE_THREADS = 512
-WIDE_BLOCKS = 264
+#: the wide path (q > Q_MAX, csrc/fused_gram_wide.cu): MMA warps and
+#: converter warps of a pass-1 block; an MMA warp's task, TASK_ROWS row
+#: bands by TASK_COLS column bands of 16 Y columns; the ring's raw stages;
+#: the chunk heights it may take, most first; the shared memory a block
+#: may use; the most bands one tile group's Y tile holds (q = 640)
+WIDE_MMA_WARPS = 8
+WIDE_CONV_WARPS = 4
+WIDE_THREADS = 32 * (WIDE_MMA_WARPS + WIDE_CONV_WARPS)
+TASK_ROWS, TASK_COLS = 2, 3
+WIDE_STAGES = 2
+WIDE_CHUNK_ROWS = (32, 16)
+SMEM_MAX = 232_448
+BAND = 16
+NBG_MAX = 40
+#: a task's ints in the schedule table (row bands, column bands, their
+#: slots in the group's Y tile, the live-tile mask) and a group's (its
+#: band count, its bands, its MMA warps' tasks)
+TASK_INTS = 2 * (TASK_ROWS + TASK_COLS) + 1
+GROUP_INTS = 1 + NBG_MAX + WIDE_MMA_WARPS * TASK_INTS
 #: the reference's block table (pint_tpu/ops/pallas_fit.py:96): k and p1
 #: each padded to 128 lanes, the two together at most 640 (its budget of
 #: 3 q^2 f32 accumulators in half of a 10 MiB VMEM)
@@ -83,13 +99,131 @@ def _pad(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def _wide_tasks(q: int):
+    """The MMA warps' tasks that cover G's upper triangle at width q > 80:
+    for each pair of row bands (2a, 2a + 1) of 16 Y columns, the column
+    bands 2a, 2a + 1, ... in runs of TASK_COLS.  A task is (row bands,
+    column bands, mask), -1 for a band past Y; bit (i TASK_COLS + j) 2 + h
+    of the mask marks the live 16 x 8 tile (row band i, column tile
+    2 cb[j] + h): in the upper triangle (rb[i] <= cb[j]) and not wholly
+    past q.  Every live tile lies in exactly one task."""
+    nbt, nt = -(-q // BAND), -(-q // TILE_COLS)
+    tasks = []
+    for a in range(-(-nbt // 2)):
+        rows = [b if b < nbt else -1 for b in (2 * a, 2 * a + 1)]
+        for c0 in range(2 * a, nbt, TASK_COLS):
+            cols = [c if c < nbt else -1 for c in range(c0, c0 + TASK_COLS)]
+            mask = 0
+            for i, rb in enumerate(rows):
+                for j, cb in enumerate(cols):
+                    for h in range(2):
+                        if 0 <= rb <= cb and 2 * cb + h < nt:
+                            mask |= 1 << ((i * TASK_COLS + j) * 2 + h)
+            tasks.append((rows, cols, mask))
+    return tasks
+
+
+def _least(loads, counts, cap):
+    """Index of the least-loaded bin with room (ties: the lowest)."""
+    return min((b for b in range(len(loads)) if counts[b] < cap),
+               key=lambda b: (loads[b], b))
+
+
+def _stage_bytes(rows: int, k: int, p1: int, es: int) -> int:
+    """One raw stage: a chunk's T, A and w spans, each 16-byte aligned."""
+    return _pad(_pad(rows * k * es, 16) + _pad(rows * p1 * 8, 16) + rows * 8,
+                128)
+
+
+def wide_y_stride(nbg: int) -> int:
+    """A Y tile's row stride in f32 words for nbg bands: 8 mod 32, so a
+    fragment load (4 rows t4 x 8 consecutive columns g) hits 32 banks."""
+    return _pad(BAND * nbg, 32) + 8
+
+
+def wide_smem(rows: int, ytiles: int, k: int, p1: int, es: int,
+              nbg: int) -> int:
+    """Pass 1's shared memory: the ring's raw stages, the f32 Y tiles, the
+    converters' column map and the ring's mbarriers (fused_gram_wide.cu)."""
+    return (WIDE_STAGES * _stage_bytes(rows, k, p1, es)
+            + ytiles * rows * wide_y_stride(nbg) * 4 + BAND * NBG_MAX * 4
+            + 2 * WIDE_STAGES * 8)
+
+
+@functools.lru_cache(maxsize=64)
+def wide_geometry(q: int):
+    """The wide path's schedule at width q, a pure function of q.
+
+    The tasks (:func:`_wide_tasks`) go to ngroups = ceil(tasks / 8) tile
+    groups of 8 MMA warps, balanced by live 16 x 8 tiles (MMAs a 16-row
+    step): longest first onto the 4 ngroups warp schedulers (two warps
+    each, warps p and p + 4 of a block share scheduler p), then the
+    schedulers, most loaded first, onto the groups.  A group's Y tile
+    holds its bands alone.  The chunk height and the Y tiles in flight are
+    the first of (32, 2), (16, 2), (16, 1) that fit SMEM_MAX with T in f64
+    (so T in f32 takes the same geometry and bits).
+
+    Returns a dict: rows, ytiles, ngroups, nbg (most bands of a group)
+    and table (np.int32 (ngroups, GROUP_INTS): band count, bands padded
+    with -1, then per MMA warp its row bands, column bands, their slots in
+    the group's bands, and its mask)."""
+    tasks = _wide_tasks(q)
+    tiles = [bin(m).count("1") for _, _, m in tasks]
+    ngroups = -(-len(tasks) // WIDE_MMA_WARPS)
+    nsched = 4 * ngroups
+    per = WIDE_MMA_WARPS // 4
+    sload, scount = [0] * nsched, [0] * nsched
+    stasks = [[] for _ in range(nsched)]
+    for t in sorted(range(len(tasks)), key=lambda t: (-tiles[t], t)):
+        s = _least(sload, scount, per)
+        sload[s] += tiles[t]
+        scount[s] += 1
+        stasks[s].append(t)
+    gload, gcount = [0] * ngroups, [0] * ngroups
+    gsched = [[] for _ in range(ngroups)]
+    for s in sorted(range(nsched), key=lambda s: (-sload[s], s)):
+        g = _least(gload, gcount, 4)
+        gload[g] += sload[s]
+        gcount[g] += 1
+        gsched[g].append(s)
+    table = np.full((ngroups, GROUP_INTS), -1, dtype=np.int32)
+    nbg = 0
+    for g in range(ngroups):
+        warps = [None] * WIDE_MMA_WARPS
+        for p, s in enumerate(gsched[g]):
+            for r, t in enumerate(stasks[s]):
+                warps[p + 4 * r] = tasks[t]
+        bands = sorted({b for w in warps if w for b in w[0] + w[1] if b >= 0})
+        nbg = max(nbg, len(bands))
+        table[g, 0] = len(bands)
+        table[g, 1:1 + len(bands)] = bands
+        for v, w in enumerate(warps):
+            base = 1 + NBG_MAX + v * TASK_INTS
+            if w is None:
+                table[g, base + TASK_INTS - 1] = 0
+                continue
+            rows, cols, mask = w
+            slots = [bands.index(b) if b >= 0 else -1 for b in rows + cols]
+            table[g, base:base + TASK_INTS] = [*rows, *cols, *slots, mask]
+    for rows, ytiles in ((WIDE_CHUNK_ROWS[0], 2), (WIDE_CHUNK_ROWS[1], 2),
+                         (WIDE_CHUNK_ROWS[1], 1)):
+        # T in f64 (k = q, p1 = 0 gives its 8 q + 8 bytes a row) takes the
+        # most shared memory
+        if wide_smem(rows, ytiles, q, 0, 8, nbg) <= SMEM_MAX:
+            break
+    table.setflags(write=False)
+    return dict(rows=rows, ytiles=ytiles, ngroups=ngroups, nbg=nbg,
+                table=table)
+
+
 def fused_block_table(n: int, k: int, p1: int):
     """Launch geometry for T (n, k), A (n, p1), or None when the
     reference's table refuses the shape (pad128(k) + pad128(p1) > 640).
     A pure function of the shapes.  Returns (nb, q_pad, threads): for
     q = k + p1 <= Q_MAX the narrow path's (pass-1 blocks, Y's width in
-    16-column bands, 512); wider, the wide path's (row blocks, Y's width
-    in 128-column panels, 512)."""
+    16-column bands, 512); wider, the wide path's (row runs, Y's width in
+    16-column bands, 384), whose pass 1 runs ngroups blocks a row run
+    (:func:`wide_geometry`), at most NB_MAX in all."""
     if not (1 <= n < 2**31 and k >= 1 and p1 >= 1):
         return None
     if _pad(k, REF_LANES) + _pad(p1, REF_LANES) > REF_Q_MAX:
@@ -97,10 +231,9 @@ def fused_block_table(n: int, k: int, p1: int):
     q = k + p1
     if q <= Q_MAX:
         return min(-(-n // ROWS), NB_MAX), _pad(q, TILE_ROWS), THREADS
-    npan = -(-q // PANEL)
-    pairs = npan * (npan + 1) // 2
-    return (min(-(-n // WIDE_ROWS), max(1, WIDE_BLOCKS // pairs)),
-            npan * PANEL, WIDE_THREADS)
+    geo = wide_geometry(q)
+    return (min(-(-n // geo["rows"]), NB_MAX // geo["ngroups"]),
+            _pad(q, BAND), WIDE_THREADS)
 
 
 def fused_gram_joint_plain(T32, A, w, precision: str = "highest"):
@@ -158,26 +291,34 @@ def fused_gram_joint_cuda(T, A, w, precision: str = "highest"):
     if dev.type != "cuda" or A.device != dev or w.device != dev:
         raise ValueError("fused_gram_joint_cuda: T, A, w must be on one card")
     nb, q_pad, threads = tab
-    wide = k + p1 > Q_MAX
-    if wide:
-        npan = q_pad // PANEL
-        scratch = nb * (npan * (npan + 1) // 2) * PANEL * PANEL
-    else:
-        scratch = nb * fused_tile_count(k + p1) * TILE_ROWS * TILE_COLS
-    partial = torch.empty(scratch, dtype=F64, device=dev)
+    q = k + p1
+    wide = q > Q_MAX
+    partial = torch.empty(nb * fused_tile_count(q) * TILE_ROWS * TILE_COLS,
+                          dtype=F64, device=dev)
     gtt = torch.empty((k, k), dtype=F64, device=dev)
     gta = torch.empty((k, p1), dtype=F64, device=dev)
     gaa = torch.empty((p1, p1), dtype=F64, device=dev)
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch = c_entry("fused_gram_wide" if wide else "fused_gram_joint",
-                     [p, i, p, p, i, i, i, i, i, i, p, p, p, p, p])
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = launch(
-            T.data_ptr(), int(T.dtype == F64), A.data_ptr(), w.data_ptr(),
-            n, k, p1, q_pad, nb, threads, partial.data_ptr(),
-            gtt.data_ptr(), gta.data_ptr(), gaa.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        if wide:
+            geo = wide_geometry(q)
+            table = _wide_table(q, dev)
+            err = c_entry("fused_gram_wide",
+                          [p, i, p, p, i, i, i, i, i, i, i, i, i, p, p, p,
+                           p, p, p])(
+                T.data_ptr(), int(T.dtype == F64), A.data_ptr(),
+                w.data_ptr(), n, k, p1, geo["rows"], geo["ytiles"],
+                geo["ngroups"], geo["nbg"], nb, threads, table.data_ptr(),
+                partial.data_ptr(), gtt.data_ptr(), gta.data_ptr(),
+                gaa.data_ptr(), stream)
+        else:
+            err = c_entry("fused_gram_joint",
+                          [p, i, p, p, i, i, i, i, i, i, p, p, p, p, p])(
+                T.data_ptr(), int(T.dtype == F64), A.data_ptr(),
+                w.data_ptr(), n, k, p1, q_pad, nb, threads,
+                partial.data_ptr(), gtt.data_ptr(), gta.data_ptr(),
+                gaa.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused_gram_joint kernel launch failed: "
                            f"cudaError {err}")
@@ -188,6 +329,13 @@ def fused_gram_joint_cuda(T, A, w, precision: str = "highest"):
 
 fused_gram_joint_cuda.launches = 0
 fused_gram_joint_cuda.wide_launches = 0
+
+
+@functools.lru_cache(maxsize=16)
+def _wide_table(q: int, device):
+    """wide_geometry(q)'s table on the card, copied there once."""
+    return torch.tensor(wide_geometry(q)["table"].tolist(), dtype=torch.int32,
+                        device=device)
 
 
 def fused_gram_joint(T32, A, w, precision: str = "highest"):

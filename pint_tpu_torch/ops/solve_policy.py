@@ -9,12 +9,21 @@ card takes the mixed recipes, the CPU keeps the exact f64 paths.
 Knobs, read at every call:
 
 - ``PINT_TPU_TORCH_SOLVE_IR``: ``0`` restores the pre-policy solves on
-  every device (callers pass ``cholesky=None, check_rtol=None``);
+  every device (callers pass ``check_rtol=None``);
   ``force`` enables the policy on the CPU (tests).
 - ``PINT_TPU_TORCH_SOLVE_IR_RTOL``: the residual-check tolerance.
 - ``PINT_TPU_TORCH_FUSED_INTERIOR``: ``0`` keeps the unfused
   ``gram32_joint`` everywhere; ``force`` routes the CPU through the fused
   dispatcher too, which there takes the kernel's plain version.
+
+The equilibrated f32 factor of every refined solve is the native
+``torch.linalg.cholesky_ex`` (``ops/ffgram.py::nan_cholesky``) at every
+size.  The reference hands operands of 2048 or more rows to its blocked
+``fast_cholesky32``: a speed choice for the TPU, where the native
+factorization compiles slowly.  Either factor serves only as the
+preconditioner of the f64-refined solve, whose residual check stays
+armed, so the result keeps the reference's contract (ROADMAP A8 ports
+the blocked factorization).
 """
 
 from __future__ import annotations
@@ -22,9 +31,6 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
-
-#: smallest equilibrated operand routed to the blocked factorization
-IR_BLOCKED_MIN = 2048
 
 #: default relative residual-check tolerance: a converged refinement sits
 #: at the ~1e-7 split-matmul floor, a stalled one at O(1)
@@ -56,19 +62,6 @@ def check_rtol(device) -> float | None:
     return float(
         os.environ.get("PINT_TPU_TORCH_SOLVE_IR_RTOL",
                        str(DEFAULT_CHECK_RTOL))
-    )
-
-
-def ir_cholesky(n: int, device):
-    """The factorization for an (n, n) solve under the policy: None (the
-    native Cholesky inside chol_solve_ir) below IR_BLOCKED_MIN.  At or
-    above it the reference uses its blocked fast_cholesky32, which is not
-    ported yet."""
-    if not ir_active(device) or n < IR_BLOCKED_MIN:
-        return None
-    raise NotImplementedError(
-        f"refined solve of a {n}x{n} system needs the blocked f32 "
-        "Cholesky (parallel/dense.py::fast_cholesky32), ROADMAP A8"
     )
 
 

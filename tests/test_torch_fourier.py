@@ -269,10 +269,10 @@ def test_fourier_shape_table_and_refusals():
     assert sig.shape == (130, 130) and twx.shape == (130, 17)
     assert fourier.fourier_apply(t, f[:4], torch.ones(
         (8, 17), dtype=torch.float64)).shape == (50, 17)
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="unknown precision"):
         fourier.fourier_gram(t, f[:4], w, torch.ones((50, 3),
                                                      dtype=torch.float64),
-                             precision="high")
+                             precision="medium")
     with pytest.raises(ValueError, match="one card"):
         fourier.fourier_gram_cuda(t, f[:4], w,
                                   torch.ones((50, 3), dtype=torch.float64))

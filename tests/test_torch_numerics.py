@@ -349,9 +349,9 @@ def test_fused_block_table():
     """Pure function of the shapes; the bench shape and golden13's k = 1
     empty basis are on the narrow path (one persistent block per SM, 132,
     64-row chunks, Y padded to whole 16-column bands), q = k + p1 > 80 on
-    the wide path (64-column panels, row blocks from the panel pairs),
-    and only what the reference's table refuses (pad128(k) + pad128(p1)
-    > 640) is out."""
+    the wide path (row runs of its tile groups, Y in whole 16-column
+    bands, 384 threads), and only what the reference's table refuses
+    (pad128(k) + pad128(p1) > 640) is out."""
     tab = fused_block_table(100_000, 60, 7)
     assert tab == fused_block_table(100_000, 60, 7)
     nb, q_pad, threads = tab
@@ -359,9 +359,9 @@ def test_fused_block_table():
     assert fused_block_table(92, 1, 9) == (2, 16, 512)
     assert fused_block_table(1000, 1, 3)[1] == 16
     assert fused_block_table(10, 72, 8) == (1, 80, 512)
-    assert fused_block_table(10, 73, 8) == (1, 128, 512)
-    assert fused_block_table(100_000, 60, 169) == (88, 256, 512)
-    assert fused_block_table(100_000, 128, 512) == (17, 640, 512)
+    assert fused_block_table(10, 73, 8) == (1, 96, 384)
+    assert fused_block_table(100_000, 60, 169) == (44, 240, 384)
+    assert fused_block_table(100_000, 128, 512) == (6, 640, 384)
     assert fused_block_table(100_000, 129, 512) is None
     assert fused_block_table(0, 60, 7) is None
 
@@ -386,15 +386,15 @@ def test_fused_tiles_cover_the_upper_triangle(q):
 
 def test_fused_gram_dispatch_and_contract():
     """CPU tensors take the plain version (no launch counted); the CUDA
-    wrapper refuses CPU tensors; only the 'highest' rung exists."""
+    wrapper refuses CPU tensors; an unknown precision rung raises."""
     T, A, w = gram_inputs(1000, 1)
     before = fused_gram_joint_cuda.launches
     fused_gram_joint(_t(T), _t(A), _t(w))
     assert fused_gram_joint_cuda.launches == before
     with pytest.raises(ValueError, match="one card"):
         fused_gram_joint_cuda(_t(T), _t(A), _t(w))
-    with pytest.raises(ValueError, match="precision"):
-        fused_gram_joint(_t(T), _t(A), _t(w), precision="high")
+    with pytest.raises(ValueError, match="unknown precision"):
+        fused_gram_joint(_t(T), _t(A), _t(w), precision="medium")
 
 
 def _refusal_cases():
@@ -452,9 +452,6 @@ def test_solve_policy_knobs(monkeypatch):
     monkeypatch.setenv("PINT_TPU_TORCH_FUSED_INTERIOR", "force")
     assert solve_policy.ir_active(cpu)
     assert solve_policy.fused_interior_active(cpu)
-    assert solve_policy.ir_cholesky(60, cpu) is None
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        solve_policy.ir_cholesky(4096, cpu)
 
 
 # -- the port stands alone -------------------------------------------------

@@ -5,7 +5,9 @@ The port's ``fused_block_table`` admits a shape exactly when the
 reference's does (``pint_tpu/ops/pallas_fit.py``, run in the reference
 subprocess of tests/torch_reference.py); ``_joint_gram`` then takes the
 fused route for the binary MSP's q = 229 and ``gram32_joint`` only where
-the reference's table refuses; the plain versions hold the reference's
+the reference's table refuses; the wide kernel's schedule
+(``wide_geometry``) covers each live output tile once, balanced, within
+shared memory and with aligned copies; the plain versions hold the reference's
 Pallas kernels (interpret mode, as its own tests run them) at q = 228 and
 229, k = 100 with p = 169 and m = 40; the column-sliced Fourier dispatch
 gives the bits of one launch.  The ``gpu`` tests hold the CUDA kernels to
@@ -102,12 +104,128 @@ def test_fused_block_table_admits_what_the_reference_admits(ref, k):
 
 
 def test_wide_shapes_take_the_wide_path():
-    """q > 80 has the wide path's geometry (128-column panels, 512
-    threads); the q <= 80 geometry of the narrow kernel is unchanged."""
+    """q > 80 has the wide path's geometry (row runs, Y's width in 16-column
+    bands, 384 threads); the q <= 80 geometry of the narrow kernel is
+    unchanged."""
     assert fused_block_table(100_000, 60, 7) == (132, 80, 512)
-    assert fused_block_table(100_000, 60, 169) == (88, 256, 512)
-    assert fused_block_table(100_000, 60, 168)[1:] == (256, 512)
-    assert fused_block_table(64, 128, 512) == (2, 640, 512)
+    assert fused_block_table(100_000, 60, 169) == (44, 240, 384)
+    assert fused_block_table(100_000, 60, 168)[1:] == (240, 384)
+    assert fused_block_table(64, 128, 512) == (4, 640, 384)
+
+
+def _decoded(q):
+    """wide_geometry(q)'s table as the kernel reads it: per group, its
+    bands and per MMA warp (row bands, column bands, mask), each slot
+    checked against the group's bands."""
+    geo = fused_gram.wide_geometry(q)
+    R, C = fused_gram.TASK_ROWS, fused_gram.TASK_COLS
+    groups = []
+    for row in geo["table"]:
+        nbg = int(row[0])
+        bands = [int(b) for b in row[1:1 + nbg]]
+        warps = []
+        for v in range(fused_gram.WIDE_MMA_WARPS):
+            t = [int(x) for x in row[1 + fused_gram.NBG_MAX
+                                     + v * fused_gram.TASK_INTS:][
+                :fused_gram.TASK_INTS]]
+            rb, cb, slots, mask = t[:R], t[R:R + C], t[R + C:-1], t[-1]
+            for b, sl in zip(rb + cb, slots):
+                assert (sl == -1) if b < 0 else bands[sl] == b
+            warps.append((rb, cb, mask))
+        groups.append((bands, warps))
+    return geo, groups
+
+
+WIDE_Q = [81, 96, 97, 128, 160, 200, 228, 229, 231, 300, 333, 400, 512,
+          639, 640]
+
+
+@pytest.mark.parametrize("q", WIDE_Q)
+def test_wide_tiles_owned_once(q):
+    """Every live 16 x 8 tile of the upper triangle (band I, column tile
+    2 I <= J < ceil(q / 8)) is owned by exactly one (group, MMA warp, task
+    slot) of the schedule table, and a group's bands are those its warps
+    use."""
+    geo, groups = _decoded(q)
+    nbt, nt = -(-q // 16), -(-q // 8)
+    seen = {}
+    R, C = fused_gram.TASK_ROWS, fused_gram.TASK_COLS
+    for g, (bands, warps) in enumerate(groups):
+        used = set()
+        for v, (rb, cb, mask) in enumerate(warps):
+            for i in range(R):
+                for j in range(C):
+                    for h in range(2):
+                        if mask >> ((i * C + j) * 2 + h) & 1:
+                            tile = (rb[i], 2 * cb[j] + h)
+                            seen[tile] = seen.get(tile, 0) + 1
+                            used |= {rb[i], cb[j]}
+        assert sorted(used) == bands
+    live = {(i, j) for i in range(nbt) for j in range(2 * i, nt)}
+    assert set(seen) == live and set(seen.values()) == {1}
+    assert len(live) == fused_gram.fused_tile_count(q)
+    assert geo["ngroups"] * (fused_gram.NB_MAX // geo["ngroups"]) <= 132
+
+
+@pytest.mark.parametrize("q", WIDE_Q)
+def test_wide_groups_balanced(q):
+    """The tile groups' live tiles (MMAs a 16-row step) differ by at most
+    one task's (12), and no warp scheduler of a block (warps p and p + 4)
+    holds more than the mean a scheduler plus one task: the stated
+    balance of ops/fused_gram.py::wide_geometry."""
+    geo, groups = _decoded(q)
+    task = fused_gram.TASK_ROWS * fused_gram.TASK_COLS * 2
+    tiles = [sum(bin(m).count("1") for _, _, m in warps)
+             for _, warps in groups]
+    assert len(tiles) == geo["ngroups"]
+    assert max(tiles) - min(tiles) <= task
+    mean = sum(tiles) / (4 * len(tiles))
+    for _, warps in groups:
+        for p in range(4):
+            load = sum(bin(warps[v][2]).count("1") for v in (p, p + 4))
+            assert load <= mean + task
+
+
+def test_wide_chunks_fit_shared_memory():
+    """For every shape the reference admits past q = 80, with T in f32 and
+    in f64, the chosen chunk height (32 or 16 rows) and Y tiles (2 or 1)
+    fit the 227 KB a block may use; 32 rows and two Y tiles wherever they
+    fit."""
+    pad = fused_gram._pad
+    geos = {q: fused_gram.wide_geometry(q) for q in range(81, 641)}
+    for k in range(1, 513):
+        for p1 in range(max(1, 81 - k), 641 - pad(k, 128) + 1):
+            if pad(k, 128) + pad(p1, 128) > 640:
+                break
+            geo = geos[k + p1]
+            for es in (4, 8):
+                assert fused_gram.wide_smem(geo["rows"], geo["ytiles"], k,
+                                            p1, es, geo["nbg"]) <= 232_448
+    for q, geo in geos.items():
+        if (geo["rows"], geo["ytiles"]) != (32, 2):
+            assert fused_gram.wide_smem(32, 2, q, 0, 8, geo["nbg"]) > 232_448
+    assert fused_gram.wide_geometry(229)["rows"] == 32
+    assert fused_gram.wide_geometry(640)["rows"] == 16
+
+
+@pytest.mark.parametrize("n,k,p1", [(100_000, 60, 169), (100_001, 61, 170),
+                                    (1_001, 128, 511)])
+def test_wide_copies_aligned_at_odd_widths(n, k, p1):
+    """Each chunk's whole-row spans of T (f32 or f64), A and w start on a
+    16-byte boundary of their tensors and of the shared stage, at odd row
+    widths such as p1 = 169 (a chunk starts at an even row), and only a
+    ragged last chunk leaves a tail of < 16 bytes for plain loads."""
+    pad = fused_gram._pad
+    rows = fused_gram.wide_geometry(k + p1)["rows"]
+    for es in (4, 8):
+        tb, ab = pad(rows * k * es, 16), pad(rows * p1 * 8, 16)
+        assert tb % 16 == 0 and (tb + ab) % 16 == 0
+        for r0 in range(0, n, rows):
+            nr = min(rows, n - r0)
+            for off, nbytes in ((r0 * k * es, nr * k * es),
+                                (r0 * p1 * 8, nr * p1 * 8), (r0 * 8, nr * 8)):
+                assert off % 16 == 0
+                assert nbytes % 16 == 0 or r0 + rows >= n
 
 
 @pytest.mark.parametrize("k,p1", [(60, 169), (128, 512)])
@@ -232,13 +350,13 @@ def _kernel_vs_plain(kernel, plain, *args):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,k,p1,t32", [(100_000, 60, 169, False),
-                                        (100_000, 60, 168, True),
-                                        (100_000, 128, 512, False),
-                                        (100_001, 61, 170, True)])
+@pytest.mark.parametrize("t32", [False, True])
+@pytest.mark.parametrize("n,k,p1", [(100_000, 60, 169), (100_000, 60, 168),
+                                    (100_000, 128, 512), (100_001, 61, 170)])
 def test_wide_fused_gram_kernel_matches_plain_on_card(n, k, p1, t32):
-    """csrc/fused_gram_wide.cu against the plain version on the card:
-    3e-6 of scale and bitwise on rerun, counted as a wide launch."""
+    """csrc/fused_gram_wide.cu against the plain version on the card at
+    q = 229, 228, 640 and a ragged n, T in f64 and f32: 3e-6 of scale and
+    bitwise on rerun, counted as a wide launch."""
     dev = _card()
     T, A, w = (_t(x, dev) for x in gram_inputs(n, k, p1))
     before = fused_gram_joint_cuda.wide_launches
