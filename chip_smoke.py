@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Drives the port's fit paths through the entry points a user calls
-(``get_model``, ``make_test_pulsar``, ``GLSFitter.fit_toas``) on two
-pulsars at 1e5 TOAs:
+(``get_model``, ``make_test_pulsar``, ``GLSFitter.fit_toas``, and the
+default ``auto_fitter(toas, model).fit_toas()``) on two pulsars at 1e5
+TOAs:
 
 - bench.py's pulsar (spindown, equatorial astrometry, solar-system
   Shapiro, DM, EFAC/EQUAD, 30-harmonic power-law red noise; 6 design
@@ -15,7 +16,7 @@ pulsars at 1e5 TOAs:
   noise; 168 design columns with the offset, so the joint Gram is
   q = 60 + 169 = 229 columns wide).
 
-On each, the default fit (``fused='auto'``) takes the mixed step, whose
+On each, GLSFitter's default (``fused='auto'``) takes the mixed step, whose
 joint Gram is the hand-written CUDA kernel ``csrc/fused_gram_joint.cu``
 (its wide path ``csrc/fused_gram_wide.cu`` for q > 80, the MSP's), and
 the streaming-basis fit (``fused=True``) the fourier step, whose basis
@@ -61,21 +62,39 @@ Phases, each of which raises on failure (exit code != 0):
    from the par values at the step gates of the f64 step; the card
    against the CPU on a 2048-TOA copy with 12 DMX ranges, simulated as
    bench.py's pulsar is (1e-11 s, 1e-8), and on a copy simulated as the
-   1e5-TOA MSP is (orbit inside the phases), their f64 steps' gap printed
-   in units of each parameter's sigma; every kernel against its plain version at the wide shapes
-   (``fused_gram_joint`` at q = 229 and 228 with T in f64 and f32, at
-   the reference's widest k = 128 with p1 = 512, and at a ragged n with
-   q = 231, T in f64 and f32; ``fourier_gram`` at k = 30 and 100 with
-   p = 169, and each of three slices of 16 or 9 columns of X alone, bitwise
-   equal to the same columns of the one launch;
-   ``fourier_apply`` at k = 100 with m = 40 and the basis bit for bit at
-   k = 100); the wide shapes timed as in 5, and ``fused_gram_joint`` at
-   the reference's widest q = 640; one mixed, f64 and fourier step on the
-   host clock, and one mixed step under torch.profiler.
+   1e5-TOA MSP is (orbit inside the phases), where the f64 steps' gap in
+   units of each parameter's sigma is gated against the CPU's own spread
+   measured in the same run (``sigma_gap``: past the residuals within 10x
+   the spread under reordered TOAs, the whole gap within the spread under
+   one-ulp shifts of the residuals); every kernel against its plain
+   version at the wide shapes (``fused_gram_joint`` at q = 229 and 228
+   with T in f64 and f32, at the reference's widest k = 128 with
+   p1 = 512, and at a ragged n with q = 231, T in f64 and f32;
+   ``fourier_gram`` at k = 30 and 100 with p = 169, and each of three
+   slices of 16 or 9 columns of X alone, bitwise equal to the same columns
+   of the one launch; ``fourier_apply`` at k = 100 with m = 40 and the
+   basis bit for bit at k = 100); the wide shapes timed as in 5, and
+   ``fused_gram_joint`` at the reference's widest q = 640 beside the f64
+   GEMM of the same Y; one mixed, f64 and fourier step on the host clock,
+   and one mixed step under torch.profiler;
+7. the default entry point, ``auto_fitter(toas, model)``, at 1e5 TOAs:
+   a ``DownhillGLSFitter`` on bench.py's pulsar and on the binary MSP,
+   each on the native rung with ``fused_gram_joint`` launched inside its
+   proposals (the MSP's on the wide path), the MSP's converged and within
+   1e-3 sigma of phase 6's GLSFitter fit, each matched by its host loop
+   (``PINT_TPU_TORCH_DOWNHILL_FUSED=0``: the same iterations, chi2 within
+   1e-8); the white MSP (no red noise) by ``DownhillWLSFitter`` (QR on
+   the card) and by ``WLSFitter`` (``downhill=False``), within 1e-3 sigma
+   of each other, and ``_wls_step(method='qr')`` on a 2048-TOA white copy
+   within 1e-8 of the CPU's.  Each fit prints its iterations,
+   ``converged``, chi2 from start to end, the last noise floor, its host
+   time and peak allocation, and one iteration's proposal and chi2 ladder
+   by the host clock and by device time.
 
 The last three lines are the kernels JSON (each kernel at the binary
 MSP's shapes, with its launches in the MSP's fits, and under ``bench``
-the same numbers at bench.py's pulsar), nvidia-smi's name and power
+the same numbers at bench.py's pulsar; ``fused_gram_joint`` also with
+the launches of the downhill fits of phase 7), nvidia-smi's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the package beside it, the script exits non-zero before printing
 any result.
@@ -97,7 +116,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from pint_tpu_torch.fitting.base import design_with_offset, noffset  # noqa: E402
+from pint_tpu_torch.fitting import (  # noqa: E402
+    DownhillGLSFitter,
+    DownhillWLSFitter,
+    WLSFitter,
+    auto_fitter,
+)
 from pint_tpu_torch.fitting.gls import (  # noqa: E402
     GLSFitter,
     _column_norms,
@@ -106,6 +130,14 @@ from pint_tpu_torch.fitting.gls import (  # noqa: E402
     gls_step_woodbury_fourier,
     gls_step_woodbury_mixed,
 )
+from pint_tpu_torch.fitting.downhill import _ladder_lams  # noqa: E402
+from pint_tpu_torch.fitting.spread import (  # noqa: E402
+    f64_step,
+    ordering_gaps,
+    rounding_gaps,
+    step_inputs,
+)
+from pint_tpu_torch.fitting.wls import _qr_gate, _wls_step  # noqa: E402
 from pint_tpu_torch.models.builder import get_model  # noqa: E402
 from pint_tpu_torch.ops import fourier, fused_gram  # noqa: E402
 from pint_tpu_torch.ops._cuda_build import build_libraries  # noqa: E402
@@ -114,6 +146,7 @@ from pint_tpu_torch.simulation import (  # noqa: E402
     make_test_pulsar,
     msp_par,
 )
+from pint_tpu_torch.timebase.hostdd import HostDD  # noqa: E402
 
 BENCH_PAR = """
 PSR              J1744-1134
@@ -269,13 +302,6 @@ def host_ms(fn, reps=30, warm=3):
     return statistics.median(ts)
 
 
-def step_inputs(cm, x):
-    T, phi = cm.noise_basis_or_empty(x)
-    return (cm.time_residuals(x, subtract_mean=False),
-            design_with_offset(cm, x), torch.square(cm.scaled_sigma(x)),
-            T, phi)
-
-
 def fourier_inputs(cm, x):
     """The fourier step's inputs: (r, M, Ndiag, t_sec, freqs, phi)."""
     r, M, Nd, _, _ = step_inputs(cm, x)
@@ -356,21 +382,30 @@ def profile_step(cm, x, mode):
                                   row_limit=8))
 
 
+def zero_counts():
+    for wrapper, _, _, _ in KERNELS.values():
+        wrapper.launches = 0
+    fused_gram.fused_gram_joint_cuda.wide_launches = 0
+
+
+def read_counts():
+    launches = {n: k[0].launches for n, k in KERNELS.items()}
+    launches["fused_gram_joint wide"] = (
+        fused_gram.fused_gram_joint_cuda.wide_launches)
+    return launches
+
+
 def drive(path, make_fitter, label="bench"):
     """Drive one fit path with every launch count at 0 just before it and
     read just after; check the fit and its launches.  Also prints the
     fit's peak of allocated device memory."""
-    for wrapper, _, _, _ in KERNELS.values():
-        wrapper.launches = 0
-    fused_gram.fused_gram_joint_cuda.wide_launches = 0
+    zero_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     fitter = make_fitter()
     chi2 = fitter.fit_toas(maxiter=4)
     torch.cuda.synchronize()
-    launches = {n: k[0].launches for n, k in KERNELS.items()}
-    launches["fused_gram_joint wide"] = (
-        fused_gram.fused_gram_joint_cuda.wide_launches)
+    launches = read_counts()
     rep = fitter.guard_report
     log(f"{label} {path} fit: mode={fitter.mode} rung={rep.rung} "
         f"fell_back={rep.fell_back} steps={fitter.steps_taken} "
@@ -525,7 +560,6 @@ def msp_phases(dev, rng):
     # f64 step against the CPU's in units of each parameter's sigma
     r4 = sigma_gap("msp in-phase copy", msp_par(MSP_SMALL["ndmx"], seed=0),
                    MSP_SMALL["ntoa"], MSP_SIM)
-    log(f"msp in-phase copy: {r4}")
 
     def odd(*shape):
         return torch.as_tensor(rng.standard_normal(shape), device=dev)
@@ -605,6 +639,13 @@ def msp_phases(dev, rng):
     pass_times(q640, "wide_")
     del q640["device_parts"]
     q640["bound_ms"] = gram_bound(T6, A6, w6)[0]
+    # its library yardstick, timed as at the other shapes: the f64 GEMM of
+    # the same weighted f32 Y
+    Y6 = (torch.cat([T6.float(), A6.float()], dim=1)
+          * torch.sqrt(w6).float()[:, None]).double().contiguous()
+    q640["library_ms"] = cuda_ms(lambda: torch.matmul(Y6.T, Y6))
+    q640["library_device_ms"], _ = device_ms(lambda: torch.matmul(Y6.T, Y6))
+    del Y6
     times["fused_gram_joint"]["q640"] = q640
     Tf = fourier.basis32(ft, ff)
     Yf = (torch.cat([Tf, fX.float()], dim=1)
@@ -640,7 +681,8 @@ def msp_phases(dev, rng):
         f"{ {m: NTOA / (v / 1e3) for m, v in steps.items()} }")
     profile_step(cm, x, "mixed")
     return dict(launches=launches, errs=errs, times=times, bounds=bounds,
-                shapes=shapes, gates=gates, steps=steps, r4=r4)
+                shapes=shapes, gates=gates, steps=steps, r4=r4, par=par,
+                toas=toas, gls=mixed)
 
 
 def card_vs_cpu(label, par, ntoa, sim):
@@ -680,30 +722,235 @@ def card_vs_cpu(label, par, ntoa, sim):
 
 def sigma_gap(label, par, ntoa, sim):
     """The card's f64 step against the CPU's on a small copy of a pulsar,
-    in units of each parameter's sigma (the square root of the CPU step's
-    covariance diagonal), printed for every parameter; -> the largest gap,
-    its parameter, and the gap relative to the step's largest component
-    (what card_vs_cpu gates)."""
-    got = {}
-    for d in ("cpu", "cuda"):
-        m, t = make_test_pulsar(par, ntoa=ntoa, device="cpu", **{**SIM, **sim})
-        c = m.compile(t, device=d)
-        xs = c.x0()
-        dx, (covn, norm), _, _ = gls_step_woodbury(*step_inputs(c, xs),
-                                                   normalized_cov=True)
-        got[d] = (dx.cpu(), (torch.sqrt(torch.diagonal(covn)) / norm).cpu(),
-                  ["offset"] * noffset(c) + list(c.free_names))
-    (dx_g, _, names), (dx_c, sig, _) = got["cuda"], got["cpu"]
+    in units of each parameter's sigma (the CPU step's), printed for every
+    parameter, with the CPU's yardsticks from the same run
+    (``fitting/spread.py``): the largest gaps under eight permutations of
+    the TOAs (summation order) and under three one-ulp shifts of every
+    residual (rounding of the delays).  Gated (ROADMAP C R4): the card's
+    step from the CPU's residuals within 10 times the largest ordering
+    gap — past the residuals, the card differs by summation order only —
+    and the card's whole step within the smallest rounding gap.  -> the
+    largest gap, its parameter, the gap relative to the step's largest
+    component, the residuals' largest difference and the yardsticks."""
+    m, t = make_test_pulsar(par, ntoa=ntoa, device="cpu", **{**SIM, **sim})
+    host, card = m.compile(t, device="cpu"), m.compile(t, device="cuda")
+    dx_c, sig, names = f64_step(host)
+    dx_g, _, _ = f64_step(card)
+    r_c = host.time_residuals(host.x0(), subtract_mean=False)
+    r_g = card.time_residuals(card.x0(), subtract_mean=False)
+    # r_g + (r_c - r_g) is r_c exactly: the card's step from the CPU's
+    # residuals, everything after them on the card
+    dx_gr, _, _ = f64_step(card, r_shift=r_c.cuda() - r_g)
     gap = torch.abs(dx_g - dx_c) / sig
-    order = torch.argsort(gap, descending=True).tolist()
+    past_r = float(torch.max(torch.abs(dx_gr - dx_c) / sig))
+    order = ordering_gaps(m, t, "cpu")
+    rounding = rounding_gaps(m, t, "cpu")
+    ranked = torch.argsort(gap, descending=True).tolist()
     log(f"{label}: card vs cpu f64 step at {ntoa} TOAs in sigma units, "
         f"every parameter (largest first): "
-        f"{ {names[i]: float(gap[i]) for i in order} }")
-    log(f"{label}: step in sigma units, largest |dx|/sigma "
-        f"{float(torch.max(torch.abs(dx_c) / sig))!r}")
-    worst = order[0]
-    return dict(max_gap_sigma=float(gap[worst]), worst=names[worst],
-                rel=rel(dx_g, dx_c))
+        f"{ {names[i]: float(gap[i]) for i in ranked} }")
+    out = dict(max_gap_sigma=float(gap[ranked[0]]), worst=names[ranked[0]],
+               rel=rel(dx_g, dx_c),
+               resid_diff_s=float(torch.max(torch.abs(r_g.cpu() - r_c))),
+               past_residuals_sigma=past_r, cpu_ordering_sigma=order,
+               cpu_rounding_sigma=rounding,
+               step_sigma=float(torch.max(torch.abs(dx_c) / sig)))
+    log(f"{label}: {out}")
+    check(past_r <= 10 * max(order),
+          f"{label}: past the residuals the card's step is {past_r} sigma "
+          f"off the CPU's, over 10x the ordering gap {max(order)}")
+    check(out["max_gap_sigma"] <= min(rounding),
+          f"{label}: the card's step is {out['max_gap_sigma']} sigma off the "
+          f"CPU's, over the one-ulp rounding gap {min(rounding)}")
+    return out
+
+
+def value_gaps(model, other, names, sig):
+    """|value - other's value| / sigma of each free parameter, from the
+    internal values (epochs as day and double-double seconds)."""
+    out = {}
+    for n, s_ in zip(names, sig):
+        a, b = model.params[n].internal(), other.params[n].internal()
+        if isinstance(a, tuple):
+            d = (a[0] - b[0]) * 86400.0 + (a[1] - b[1]).to_float()
+        elif isinstance(a, HostDD):
+            d = (a - b).to_float()
+        else:
+            d = a - b
+        out[n] = abs(d) / float(s_)
+    return out
+
+
+def downhill_fit(label, make, cls, wide=None):
+    """One downhill fit through the default entry point, its launch counts
+    at 0 just before it and read just after: it must be a ``cls``, be
+    served by the native rung and end finite; ``wide`` True (False) says
+    its proposals must launch ``fused_gram_joint`` on the wide (narrow)
+    path, None that they launch no kernel.  Prints the iterations,
+    ``converged``, chi2 from start to end, the last noise floor, the host
+    time and the peak allocation; then times one proposal and one chi2
+    ladder at the fitted state (host clock and device time) and the
+    ladder's peak allocation.  -> (fitter, summary)."""
+    f = make()
+    check(type(f) is cls, f"{label}: auto_fitter gave {type(f).__name__}")
+    chi2_0 = float(f._make_chi2()(f.cm.x0()))
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    chi2 = f.fit_toas()
+    torch.cuda.synchronize()
+    info = dict(niter=f.niter, converged=f.converged, chi2_start=chi2_0,
+                chi2=chi2, noise_floor=f.last_noise_floor,
+                wall_s=time.perf_counter() - t0, launches=read_counts(),
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+    rep = f.guard_report
+    log(f"{label} {type(f).__name__}: rung={rep.rung} {info}")
+    check(rep.rung == "native" and not rep.fell_back,
+          f"{label}: served by rung {rep.rung}: {rep.history}")
+    check(math.isfinite(chi2), f"{label}: non-finite chi2")
+    n_gram = info["launches"]["fused_gram_joint"]
+    n_wide = info["launches"]["fused_gram_joint wide"]
+    if wide is None:
+        check(n_gram == 0, f"{label}: fused_gram_joint launched {n_gram}")
+    else:
+        check(n_gram >= f.niter > 0 and n_wide == (n_gram if wide else 0),
+              f"{label}: fused_gram_joint launched {n_gram} times ({n_wide} "
+              f"wide) in {f.niter} iterations")
+    # one iteration's parts at the fitted state
+    x = f.cm.x0()
+    proposal = f._make_proposal()
+    ladder, lams = f._make_ladder(f._make_chi2(), _ladder_lams(1e-3)[2])
+    dx = proposal(x)[0]
+    parts = dict(lambdas=len(lams),
+                 proposal_ms=host_ms(lambda: proposal(x), reps=5, warm=1),
+                 ladder_ms=host_ms(lambda: ladder(x, dx), reps=5, warm=1))
+    parts["proposal_device_ms"], _ = device_ms(lambda: proposal(x), calls=3)
+    parts["ladder_device_ms"], _ = device_ms(lambda: ladder(x, dx), calls=3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ladder(x, dx)
+    torch.cuda.synchronize()
+    parts["ladder_peak_extra_bytes"] = torch.cuda.max_memory_allocated() - base
+    info["iteration"] = parts
+    log(f"{label}: one iteration at the fitted state (ms, median; device "
+        f"ms from the profiler): {parts}")
+    return f, info
+
+
+def host_loop_parity(label, make, fused):
+    """The same fit by the host loop (PINT_TPU_TORCH_DOWNHILL_FUSED=0): the
+    same iterations, chi2 within 1e-8 relative of the fused loop's."""
+    os.environ["PINT_TPU_TORCH_DOWNHILL_FUSED"] = "0"
+    try:
+        f = make()
+        chi2 = f.fit_toas()
+    finally:
+        del os.environ["PINT_TPU_TORCH_DOWNHILL_FUSED"]
+    d = abs(chi2 - fused["chi2"]) / abs(fused["chi2"])
+    log(f"{label}: host loop niter={f.niter} chi2={chi2!r} (fused "
+        f"{fused['niter']}, {fused['chi2']!r}; rel {d!r})")
+    check(f.niter == fused["niter"] and d <= 1e-8,
+          f"{label}: host loop took {f.niter} iterations to chi2 {chi2}, the "
+          f"fused loop {fused['niter']} to {fused['chi2']}")
+    return dict(niter=f.niter, chi2=chi2, chi2_rel=d)
+
+
+def white_par(ndmx):
+    """The binary MSP's par text without its red noise."""
+    return "".join(ln + "\n" for ln in msp_par(ndmx, seed=0).splitlines()
+                   if not ln.startswith("TNRED"))
+
+
+def white_msp(dev):
+    """The binary MSP without red noise at 1e5 TOAs: auto_fitter gives the
+    downhill WLS fitter (QR on the card) and, with downhill=False, the WLS
+    fitter; their values within 1e-3 sigma.  The QR gate at the par values
+    is printed.  On a 2048-TOA copy, _wls_step(method='qr') on the card
+    within 1e-8 of the CPU's."""
+    par = white_par(MSP_NDMX)
+    model, toas = make_test_pulsar(par, ntoa=NTOA, device=dev, **MSP_SIM)
+    cm = model.compile(toas, device=dev)
+    r, M, Nd, _, _ = step_inputs(cm, cm.x0())
+    sw = torch.sqrt(1.0 / Nd)  # as _wls_step weights the design
+    A = (M / _column_norms(M * sw[:, None])[None, :]) * sw[:, None]
+    gate = dict(zip(("rank_ok", "diag_ratio", "cond_est"),
+                    _qr_gate(torch.linalg.qr(A)[1])))
+    log(f"white msp: design {tuple(M.shape)}, QR gate at the par values "
+        f"{gate} ({'qr' if gate['rank_ok'] else 'routed to gram'})")
+    del cm, r, M, Nd, A
+    f, info = downhill_fit("white msp", lambda: auto_fitter(toas, model),
+                           DownhillWLSFitter)
+    check(f.converged, "white msp: the downhill WLS fit did not converge")
+    w = auto_fitter(toas, get_model(par), downhill=False)
+    check(type(w) is WLSFitter, f"white msp: got {type(w).__name__}")
+    t0 = time.perf_counter()
+    w_chi2 = w.fit_toas()
+    torch.cuda.synchronize()
+    info["wls"] = dict(chi2=w_chi2, converged=w.converged,
+                       wall_s=time.perf_counter() - t0,
+                       rung=w.guard_report.rung)
+    check(w.guard_report.rung == "cuda-qr", f"WLS rung {w.guard_report.rung}")
+    sig = np.sqrt(np.diag(w.parameter_covariance_matrix))
+    gaps = value_gaps(f.model, w.model, f.cm.free_names, sig)
+    worst = max(gaps, key=gaps.get)
+    info["vs_wls_sigma"] = {"max": gaps[worst], "worst": worst}
+    log(f"white msp: WLSFitter {info['wls']}; downhill vs WLS "
+        f"{info['vs_wls_sigma']}")
+    check(gaps[worst] <= 1e-3, f"white msp: downhill and WLS differ by "
+          f"{gaps[worst]} sigma on {worst}")
+    info["qr_gate"] = gate
+    # the QR step, card against CPU, on a small copy
+    m2, t2 = make_test_pulsar(white_par(MSP_SMALL["ndmx"]),
+                              ntoa=MSP_SMALL["ntoa"], device="cpu", **MSP_SIM)
+    res = {}
+    for d in ("cpu", "cuda"):
+        c = m2.compile(t2, device=d)
+        r2, M2, Nd2, _, _ = step_inputs(c, c.x0())
+        res[d] = _wls_step(r2, M2, 1.0 / Nd2, method="qr")
+    small = dict(dx_rel=rel(res["cuda"][0], res["cpu"][0]),
+                 cov_rel=rel(res["cuda"][1], res["cpu"][1]),
+                 nbad=(int(res["cuda"][2]), int(res["cpu"][2])))
+    log(f"white msp copy at {MSP_SMALL['ntoa']} TOAs: qr step card vs cpu "
+        f"{small}")
+    check(small["dx_rel"] <= 1e-8 and small["cov_rel"] <= 1e-8
+          and small["nbad"] == (0, 0), f"qr step card vs cpu {small}")
+    info["qr_card_vs_cpu"] = small
+    return info
+
+
+def entry_point_phase(bench_toas, msp):
+    """The default entry point, ``auto_fitter(toas, model)``, at 1e5 TOAs:
+    downhill GLS on bench.py's pulsar (its proposals through
+    ``fused_gram_joint``) and on the binary MSP (through the wide path;
+    it starts at the truth, must converge and land within 1e-3 sigma of
+    the GLSFitter fit of phase 6), each against its host loop; then the
+    white MSP by downhill WLS and WLS.  -> what the kernels line reports."""
+    out = {}
+
+    def bench():
+        return auto_fitter(bench_toas, get_model(BENCH_PAR))
+
+    def binary():
+        return auto_fitter(msp["toas"], get_model(msp["par"]))
+
+    _, out["bench"] = downhill_fit("bench", bench, DownhillGLSFitter,
+                                   wide=False)
+    out["bench"]["host_loop"] = host_loop_parity("bench", bench, out["bench"])
+    f, out["msp"] = downhill_fit("msp", binary, DownhillGLSFitter, wide=True)
+    check(f.converged, "msp: the downhill GLS fit did not converge")
+    gls = msp["gls"]
+    gaps = value_gaps(f.model, gls.model, f.cm.free_names,
+                      np.sqrt(np.diag(gls.parameter_covariance_matrix)))
+    worst = max(gaps, key=gaps.get)
+    out["msp"]["vs_gls_sigma"] = {"max": gaps[worst], "worst": worst}
+    log(f"msp: downhill vs GLSFitter {out['msp']['vs_gls_sigma']}")
+    check(gaps[worst] <= 1e-3, f"msp: downhill and GLSFitter differ by "
+          f"{gaps[worst]} sigma on {worst}")
+    out["msp"]["host_loop"] = host_loop_parity("msp", binary, out["msp"])
+    out["white_msp"] = white_msp(torch.device("cuda"))
+    return out
 
 
 def main():
@@ -880,6 +1127,9 @@ def main():
     # 6. the binary MSP at 1e5 TOAs: this slice's path and wide shapes
     msp = msp_phases(dev, rng)
 
+    # 7. the default entry point: auto_fitter -> the downhill fitters
+    entry = entry_point_phase(toas, msp)
+
     # the kernels line: each kernel at the binary MSP's shapes (launches
     # from its fits), and under "bench" the same numbers at bench.py's
     # pulsar (launches from its fits)
@@ -927,6 +1177,10 @@ def main():
     rows[0]["msp_step_ms"] = msp["steps"]
     rows[0]["msp_vs_f64"] = msp["gates"]
     rows[0]["msp_in_phase_card_vs_cpu"] = msp["r4"]
+    # the downhill GLS fits of the default entry point, on both pulsars
+    rows[0]["downhill_launches"] = {
+        k: entry[k]["launches"]["fused_gram_joint"] for k in ("bench", "msp")}
+    rows[0]["default_entry_point"] = entry
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,8 +1,8 @@
-"""Exception types of the port's fit ladder.
+"""Exception types of the port's fitters and fit ladder.
 
-Counterpart of the subset of ``pint_tpu/exceptions.py`` that the fit
-loop, the finite validator (``runtime/guard.py``) and the fallback ladder
-(``runtime/fallback.py``) raise and catch.
+Counterpart of the subset of ``pint_tpu/exceptions.py`` that the fitters
+(``fitting/``), the finite validator (``runtime/guard.py``) and the
+fallback ladder (``runtime/fallback.py``) raise, warn and catch.
 """
 
 from __future__ import annotations
@@ -46,3 +46,22 @@ class LadderExhausted(ConvergenceFailure):
 class GuardTripWarning(UserWarning):
     """A rung of the fallback ladder was refused and the fit was run
     again on the next rung."""
+
+
+class InvalidModelParameters(PintTpuError):
+    """A proposed step produced non-finite / unphysical parameters."""
+
+
+class CorrelatedErrors(PintTpuError):
+    """Model has correlated noise but the fitter cannot handle it."""
+
+    def __init__(self, model):
+        trouble = [c.__class__.__name__ for c in model.noise_components
+                   if c.introduces_correlated_errors]
+        super().__init__(
+            f"Model has correlated errors ({trouble}); use a GLS fitter"
+        )
+
+
+class ConvergenceWarning(UserWarning):
+    """A fitter stopped without meeting its convergence tolerance."""

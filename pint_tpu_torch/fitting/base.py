@@ -1,11 +1,12 @@
 """Shared fitter machinery.
 
-Counterpart of ``pint_tpu/fitting/base.py``: the implicit offset column
-and the Gauss-Newton iteration of ``make_scan_fit_loop``, here a Python
-loop on the device with the same step semantics — chi2 is measured
-before the step, the loop freezes on a non-finite chi2, and it stops when
-chi2 stops moving.  A frozen loop is refused by the fallback ladder's
-validator (``runtime/fallback.py``), not here.
+Counterpart of ``pint_tpu/fitting/base.py``: the implicit offset column,
+the Gauss-Newton iteration of ``make_scan_fit_loop``, here a Python loop
+on the device with the same step semantics — the loop freezes on a
+non-finite chi2 and stops when chi2 stops moving — and
+``device_noise_floor``, the downhill fitters' per-iteration chi2 noise
+floor computed on the device.  A frozen loop is refused by the fallback
+ladder's validator (``runtime/fallback.py``), not here.
 """
 
 from __future__ import annotations
@@ -40,16 +41,19 @@ def design_with_offset(cm, x):
     return torch.cat([ones, M], dim=1)
 
 
-def run_fit_loop(live_step, x0, p, maxiter, tol_chi2):
+def run_fit_loop(live_step, x0, p, maxiter, tol_chi2, init_chi2=None):
     """Iterate ``live_step(x) -> (x_new, (covn, norm), chi2, nbad)``.
 
-    Semantics of the reference's scan loop: each iteration measures chi2
-    at the pre-step state and applies the step; a non-finite chi2 freezes
-    the state and ends the loop; |chi2_prev - chi2| < tol * max(chi2, 1)
-    marks convergence after that step.  Returns (x, chi2, (covn, norm),
-    converged, nbads, bad) with ``bad`` True when a chi2 was non-finite."""
+    Semantics of the reference's scan loop: each iteration takes the
+    chi2 that ``live_step`` reports (GLS: the pre-step chi2 of the solve;
+    WLS: ``cm.chi2`` at the new state) and applies the step; a non-finite
+    chi2 freezes the state and ends the loop; |chi2_prev - chi2| < tol *
+    max(chi2, 1) marks convergence after that step.  ``init_chi2(x0)``
+    seeds chi2_prev (None: inf, so the first step always runs).  Returns
+    (x, chi2, (covn, norm), converged, nbads, bad) with ``bad`` True when
+    a chi2 was non-finite."""
     x = x0
-    chi2_prev = math.inf
+    chi2_prev = math.inf if init_chi2 is None else float(init_chi2(x0))
     cov = (torch.zeros((p, p), dtype=F64, device=x0.device),
            torch.ones((p,), dtype=F64, device=x0.device))
     converged = False
@@ -68,6 +72,35 @@ def run_fit_loop(live_step, x0, p, maxiter, tol_chi2):
             converged = True
             break
     return x, chi2_prev, cov, converged, nbads, bad
+
+
+def device_noise_floor(lams, c):
+    """The measured per-trial chi2 scatter at the current state, on the
+    device: the twin of ``DownhillFitter._chi2_noise_floor`` that the
+    fused downhill loop computes without a host round-trip.
+
+    ``lams`` is the probe-lambda vector (probes + the lambda = 0
+    baseline), ``c`` the matching chi2 trials (f64 tensors).  Degree-1
+    least squares in closed form, with non-finite trials masked out of
+    every sum and fewer than 4 finite points giving 0 — the host
+    version's semantics (np.polyfit solves the same normal equations; the
+    two agree to rounding, far below the floor's 6-sigma inflation)."""
+    m = torch.isfinite(c)
+    w = m.to(lams.dtype)
+    cs = torch.where(m, c, torch.zeros_like(c))
+    n = torch.sum(w)
+    n_safe = torch.clamp(n, min=1.0)
+    xm = torch.sum(w * lams) / n_safe
+    ym = torch.sum(cs) / n_safe
+    dxl = lams - xm
+    sxx = torch.sum(w * dxl * dxl)
+    sxy = torch.sum(w * dxl * (cs - ym))
+    slope = sxy / torch.where(sxx > 0, sxx, torch.ones_like(sxx))
+    resid = w * ((cs - ym) - slope * dxl)
+    ss = torch.sum(resid * resid)
+    dof = torch.clamp(n - 2.0, min=1.0)
+    return torch.where(n >= 4.0, 6.0 * torch.sqrt(ss / dof),
+                       torch.zeros_like(ss))
 
 
 class Fitter:
@@ -104,6 +137,11 @@ class Fitter:
             if nb > 0:
                 warnings.warn(f"{nb} {warn_msg}", DegeneracyWarning)
         self.converged = bool(conv)
+        return self._finalize(x, cov, chi2)
+
+    def _finalize(self, x, cov, chi2) -> float:
+        """Drop the offset row and column, commit the fitted deltas and
+        uncertainties into the host parameters, record chi2."""
         no = self._noffset
         cov = self._unnorm_cov(cov)[no:, no:]
         sigmas = np.sqrt(np.diag(cov))

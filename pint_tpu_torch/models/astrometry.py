@@ -7,6 +7,14 @@ parallax delay px (|r|^2 - (r.n)^2) / (2 AU); and, for DDK, the sky
 basis and proper motion in the component's own frame.  Internal units:
 angles rad, proper motions rad/s, PX rad; positions arrive in
 light-seconds, so the delays are plain f64 dot products.
+
+The unit vector's sines and cosines are taken about the host's reference
+angles (:func:`sincos_about`), and the dot products are sums in a fixed
+order: the Roemer delay of a ~500 light-second orbit is then the same to
+the last bit on the CUDA card and on the CPU.  Computed directly, the
+card's sin/cos differ from the CPU's in the last bit, which moved the
+Roemer delay by 2 ulps and the binary MSP's f64 step by 1.2e-7 sigma on
+ELONG (PERF.md, PR 8).
 """
 
 from __future__ import annotations
@@ -31,6 +39,55 @@ from pint_tpu_torch.models.parameter import (
 from pint_tpu_torch.ops.scalarmath import cos_p, sin_p
 
 _MAS_YR = MAS_TO_RAD / SECS_PER_JULIAN_YEAR
+
+
+def _sincos_about_raw(angle, ref: float):
+    e = angle - ref
+    s0, c0 = math.sin(ref), math.cos(ref)
+    se = torch.sin(e)
+    cm1 = -2.0 * torch.square(torch.sin(0.5 * e))
+    return s0 + (s0 * cm1 + c0 * se), c0 + (c0 * cm1 - s0 * se)
+
+
+class _SinCosAbout(torch.autograd.Function):
+    """:func:`sincos_about` with the derivative of sin and cos as its
+    forward-mode rule: the design matrix's tangents then take two
+    products, as those of torch.sin and torch.cos do, not one for each
+    operation of the identities."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(angle, ref):
+        return _sincos_about_raw(angle, ref)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(*output)
+
+    @staticmethod
+    def jvp(ctx, t_angle, _t_ref):
+        s, c = ctx.saved_tensors
+        return c * t_angle, -s * t_angle
+
+
+def sincos_about(angle, ref: float):
+    """(sin, cos) of ``angle`` (a tensor near the host float ``ref``) by
+    the angle-addition identities about ``ref``: sin(ref) and cos(ref) on
+    the host, and only the small offset e = angle - ref (exact, by
+    Sterbenz) through the device's transcendentals, as sin(e) and
+    cos(e) - 1 = -2 sin^2(e / 2).  A last-bit difference in those small
+    terms is ~|e| ulps of the result, so every device that has IEEE f64
+    adds and multiplies gets the same bits (but for a result within
+    |e| ulps of a rounding boundary); the identities are exact for any
+    e, so the accuracy is that of sin and cos."""
+    return _SinCosAbout.apply(angle, float(ref))
+
+
+def _dot3(a, b):
+    """Sum over the last axis of a 3-vector product, in a fixed order."""
+    return ((a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1])
+            + a[..., 2] * b[..., 2])
 
 
 class Astrometry(DelayComponent):
@@ -80,12 +137,12 @@ class Astrometry(DelayComponent):
     def delay_term(self, pdict, bundle, acc_delay):
         n = self.ssb_to_psr_xyz(pdict, bundle)
         r = bundle.ssb_obs_pos_ls  # light-seconds
-        rn = torch.sum(r * n, dim=-1)
+        rn = _dot3(r, n)
         roemer = -rn
         px = pdict.get("PX")
         if px is None:
             return roemer
-        r2 = torch.sum(r * r, dim=-1)
+        r2 = _dot3(r, r)
         plx = px / (2.0 * AU_LIGHT_SEC) * (r2 - rn * rn)
         return roemer + plx
 
@@ -120,12 +177,11 @@ class AstrometryEquatorial(Astrometry):
         if pmra is not None or pmdec is not None:
             dt = self._dt_pos(pdict, bundle)
         dec = dec0 if pmdec is None else dec0 + pmdec * dt
-        cosd = cos_p(dec)
         ra = ra0 if pmra is None else ra0 + pmra * dt / cos_p(dec0)
+        sind, cosd = sincos_about(dec, self.params["DECJ"].internal())
+        sina, cosa = sincos_about(ra, self.params["RAJ"].internal())
         return torch.stack(
-            torch.broadcast_tensors(
-                cos_p(ra) * cosd, sin_p(ra) * cosd, sin_p(dec)
-            ),
+            torch.broadcast_tensors(cosa * cosd, sina * cosd, sind),
             dim=-1,
         )
 
@@ -185,13 +241,10 @@ class AstrometryEcliptic(Astrometry):
         pmb = pdict.get("PMELAT")
         bet = bet0 if pmb is None else bet0 + pmb * dt
         lam = lam0 if pml is None else lam0 + pml * dt / cos_p(bet0)
-        cb = cos_p(bet)
+        sb, cb = sincos_about(bet, self.params["ELAT"].internal())
+        sl, cl = sincos_about(lam, self.params["ELONG"].internal())
         x_ecl = torch.stack(
-            torch.broadcast_tensors(
-                cos_p(lam) * cb, sin_p(lam) * cb, sin_p(bet)
-            ),
-            dim=-1,
-        )
+            torch.broadcast_tensors(cl * cb, sl * cb, sb), dim=-1)
         return self._ecl_to_equ(x_ecl)
 
     def sky_basis(self, pdict):

@@ -332,6 +332,12 @@ class CompiledModel:
             r = r - torch.sum(w * r) / torch.sum(w)
         return r
 
+    def chi2(self, x):
+        """White chi2: the weighted sum of squares of the (by default
+        weighted-mean-subtracted) time residuals."""
+        r = self.time_residuals(x)
+        return torch.sum(self._weights(x) * r * r)
+
     def design_matrix(self, x):
         """(n_toa, n_free) d(time-resid)/d(param delta), seconds per
         internal unit: jacfwd of the phase residual over the spin

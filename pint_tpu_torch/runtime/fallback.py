@@ -87,17 +87,20 @@ def run_ladder(rungs, site: str, validate):
     raise LadderExhausted(site, history)
 
 
-def fit_rungs(mode: str, device_type: str):
+def fit_rungs(mode: str, device_type: str, f64_rung: bool = True):
     """The rung sequence [(name, rung_mode), ...] for a fit of the given
     native mode on a device of ``device_type``: the native mode, then
-    the all-f64 mode unless the native mode is f64.  No CPU rung."""
+    the all-f64 mode unless the native mode is f64.  ``f64_rung=False``
+    skips the all-f64 rung (WLS: its one solve method is already the f64
+    path), leaving one rung.  No CPU rung."""
     seq = [(f"{device_type}-{mode}", mode)]
-    if mode != "f64":
+    if f64_rung and mode != "f64":
         seq.append((f"{device_type}-f64", "f64"))
     return seq
 
 
-def run_fit_ladder(cm, mode: str, run_loop, site: str, fail_msg: str):
+def run_fit_ladder(cm, mode: str, run_loop, site: str, fail_msg: str,
+                   f64_rung: bool = True):
     """Run a fit loop down the ladder.  ``run_loop(rung_mode)`` runs the
     whole fit (``fitting/base.py::run_fit_loop``) in that mode from
     ``cm.x0()``; each rung's result is refused by
@@ -108,7 +111,7 @@ def run_fit_ladder(cm, mode: str, run_loop, site: str, fail_msg: str):
         return lambda rung_site: run_loop(rung_mode)
 
     rungs = [(name, thunk(rmode))
-             for name, rmode in fit_rungs(mode, cm.device.type)]
+             for name, rmode in fit_rungs(mode, cm.device.type, f64_rung)]
     return run_ladder(
         rungs, site,
         validate=lambda res, s: ensure_scan_finite(res, fail_msg, s),

@@ -76,6 +76,18 @@ def _table(mjd_int, sec: HostDD, freq, error_us, flags) -> dict:
     }
 
 
+def orbit_pos_m(mjd_int, sec: HostDD, start_mjd: float):
+    """(n, 3) positions in metres on the synthetic observatory orbit: a
+    circle of 1 AU in the x-y plane with a one-year period, phased from
+    ``start_mjd``, at the epochs (integer MJD, HostDD seconds of day)."""
+    ph = 2 * np.pi * (
+        mjd_int + sec.to_float() / SECS_PER_DAY - start_mjd
+    ) / 365.25
+    return np.stack(
+        [AU * np.cos(ph), AU * np.sin(ph), np.zeros_like(ph)], axis=-1
+    )
+
+
 def make_test_pulsar(par: str, ntoa: int = 64, start_mjd: float = 54000.0,
                      end_mjd: float = 56000.0, seed: int = 0,
                      jitter_us: float = 1.0, freqs=(1400.0, 800.0),
@@ -103,19 +115,10 @@ def make_test_pulsar(par: str, ntoa: int = 64, start_mjd: float = 54000.0,
     sec = HostDD(mjds - mjd_int) * SECS_PER_DAY
     empty_flags = [dict() for _ in range(ntoa)]
 
-    def orbit_pos(mjd_int, sec):
-        ph = 2 * np.pi * (
-            mjd_int + sec.to_float() / SECS_PER_DAY - start_mjd
-        ) / 365.25
-        pos = np.stack(
-            [AU * np.cos(ph), AU * np.sin(ph), np.zeros_like(ph)], axis=-1
-        )
-        return pos / C
-
     for _ in range(iterations):
         table = _table(mjd_int, sec, freq, err, empty_flags)
         if orbit and orbit_in_phase:
-            table["ssb_obs_pos_ls"] = orbit_pos(mjd_int, sec)
+            table["ssb_obs_pos_ls"] = orbit_pos_m(mjd_int, sec, start_mjd) / C
         cm = model.compile(table, device=device, subtract_mean=False)
         cm.track_mode = "nearest"
         resid = cm.time_residuals(cm.x0(), subtract_mean=False)
@@ -127,5 +130,5 @@ def make_test_pulsar(par: str, ntoa: int = 64, start_mjd: float = 54000.0,
         )
     toas = _table(mjd_int, sec, freq, err, toa_flags)
     if orbit:
-        toas["ssb_obs_pos_ls"] = orbit_pos(mjd_int, sec)
+        toas["ssb_obs_pos_ls"] = orbit_pos_m(mjd_int, sec, start_mjd) / C
     return model, toas

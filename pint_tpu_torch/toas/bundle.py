@@ -91,3 +91,24 @@ def make_bundle(toas, masks, device) -> TOABundle:
             for k, v in masks.items()
         },
     )
+
+
+def take_rows(toas: dict, idx) -> dict:
+    """The host TOA table with its TOAs reordered (or selected) by the
+    integer index array ``idx``: every per-TOA column, the flags and the
+    precomputed masks taken together, so that a model compiled on the
+    result sees the same TOAs in the new order."""
+    idx = np.asarray(idx)
+    n = len(toas["freq_mhz"])
+    out = {}
+    for key, v in toas.items():
+        if key == "flags":
+            out[key] = None if v is None else [v[i] for i in idx]
+        elif key in ("obs_planet_pos_ls", "masks"):
+            out[key] = None if v is None else {
+                k: np.asarray(a)[idx] for k, a in v.items()}
+        elif isinstance(v, np.ndarray) and v.shape[:1] == (n,):
+            out[key] = v[idx]
+        else:
+            out[key] = v
+    return out

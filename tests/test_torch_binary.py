@@ -1,11 +1,15 @@
 """Parity of the port's binary-pulsar slice with the JAX package.
 
-The ten binary models, DMX, JUMP, FD and ecliptic astrometry, on ten
-golden sets that need only these components (golden14 and golden15
-ingested through the committed clock/EOP/ephemeris data), on BT and DDK
+The ten binary models, DMX, JUMP, FD and ecliptic astrometry, on eleven
+golden sets that need only ported components (golden14 and golden15
+ingested through the committed clock/EOP/ephemeris data; golden3, with
+DM1/DM2, F2 and ECORR, has no binary), on BT and DDK
 par texts cut from golden7 and golden6 (without their glitch, wave,
 ifunc and solar-wind lines), and on the binary MSP of ``chip_smoke.py``
-(``pint_tpu_torch.simulation.msp_par``) at 2048 TOAs with 12 DMX ranges.
+(``pint_tpu_torch.simulation.msp_par``) at 2048 TOAs with 12 DMX ranges:
+the copy simulated as the reference simulates it, and the copy the port
+simulates with the orbit inside the phases, on which the f64 step's
+spread under rounding is measured (ROADMAP C, R4).
 The reference runs once per module in a subprocess
 (tests/torch_reference.py) and its state is carried across with
 ``pint_tpu_torch.convert.state_from_numpy`` (the port cannot read .tim
@@ -13,6 +17,7 @@ files yet, ROADMAP A11), so both packages compute on byte-identical
 inputs.  Tolerances are stated per test.
 """
 
+import math
 import sys
 import textwrap
 from pathlib import Path
@@ -25,8 +30,14 @@ sys.path.insert(0, str(Path(__file__).parent))
 
 from torch_reference import load_state, run_reference  # noqa: E402
 
+from pint_tpu_torch.constants import C  # noqa: E402
 from pint_tpu_torch.convert import state_from_numpy  # noqa: E402
 from pint_tpu_torch.fitting.base import design_with_offset  # noqa: E402
+from pint_tpu_torch.fitting.spread import (  # noqa: E402
+    f64_step,
+    ordering_gaps,
+    rounding_gaps,
+)
 from pint_tpu_torch.fitting.gls import (  # noqa: E402
     GLSFitter,
     gls_step_woodbury,
@@ -38,12 +49,19 @@ from pint_tpu_torch.models.component import DEFAULT_ORDER  # noqa: E402
 from pint_tpu_torch.models.timing_model import (  # noqa: E402
     reference_values,
 )
-from pint_tpu_torch.simulation import MSP_FREQS, msp_par  # noqa: E402
+from pint_tpu_torch.models.astrometry import sincos_about  # noqa: E402
+from pint_tpu_torch.simulation import (  # noqa: E402
+    MSP_FREQS,
+    make_test_pulsar,
+    msp_par,
+    orbit_pos_m,
+)
 from pint_tpu_torch.timebase.hostdd import HostDD  # noqa: E402
 
 DATADIR = Path(__file__).parent / "datafile"
-GOLDENS = ["golden1", "golden2", "golden5", "golden8", "golden9",
-           "golden10", "golden11", "golden12", "golden14", "golden15"]
+GOLDENS = ["golden1", "golden2", "golden3", "golden5", "golden8",
+           "golden9", "golden10", "golden11", "golden12", "golden14",
+           "golden15"]
 #: which binary model each golden drives
 BINARY_OF = {"golden1": "ELL1", "golden2": "DD", "golden5": "ELL1H",
              "golden8": "DDGR", "golden9": "ELL1K", "golden10": "DDS",
@@ -54,10 +72,20 @@ BINARY_OF = {"golden1": "ELL1", "golden2": "DD", "golden5": "ELL1H",
 SYNTH = {"bt": ("golden7", ("GL", "WAVE", "SIFUNC", "IFUNC")),
          "ddk": ("golden6", ("NE_SW",))}
 STATES = GOLDENS + list(SYNTH)
-FITS = ["golden1", "golden2", "golden14"]
+FITS = ["golden1", "golden2", "golden3", "golden14"]
 MSP_NDMX = 12
 MSP_NTOA = 2048
 MSP_PAR = msp_par(MSP_NDMX, seed=0)
+#: chip_smoke.py's in-phase copy (its ``sigma_gap`` phase): the orbit is
+#: inside the simulated phases
+IN_PHASE = dict(start_mjd=53000.0, end_mjd=57500.0, seed=0, iterations=1,
+                orbit=True, freqs=MSP_FREQS, orbit_in_phase=True)
+
+
+def in_phase_copy():
+    """(model, table) of the in-phase 2048-TOA MSP copy, simulated by the
+    port on the CPU."""
+    return make_test_pulsar(MSP_PAR, ntoa=MSP_NTOA, device="cpu", **IN_PHASE)
 
 
 def _synth_par(stem, drop):
@@ -138,6 +166,26 @@ for step, args in (("f64", (*cm.noise_basis_or_empty(x0),)),
     OUT[f"step/{{step}}/chi2"] = np.asarray(chi2)
 rffgram.gram32 = gram32
 
+# the port's in-phase copy, carried in: the reference's f64 step on it
+from pint_tpu.timebase.times import TimeArray
+from pint_tpu.toas.ingest import ingest_barycentric
+from pint_tpu.toas.toas import TOAs
+r4 = np.load(os.environ["R4_TABLE"])
+t4 = TOAs(TimeArray(r4["day"].astype(np.int64), HostDD(r4["hi"], r4["lo"]),
+                    "tdb"), r4["freq"], r4["err"], ["@"] * len(r4["freq"]),
+          [{{"f": str(f)}} for f in r4["flags"]])
+ingest_barycentric(t4)
+t4.ssb_obs_pos = r4["pos_m"]
+c4 = get_model({MSP_PAR!r}).compile(t4)
+x4 = c4.x0()
+r_4 = c4.time_residuals(x4, subtract_mean=False)
+dx, (covn, norm), _, _ = rgls.gls_step_woodbury(
+    r_4, design_with_offset(c4, x4), jnp.square(c4.scaled_sigma(x4)),
+    *c4.noise_basis_or_empty(x4), normalized_cov=True)
+OUT["r4/resid"] = np.asarray(r_4)
+OUT["r4/dx"] = np.asarray(dx)
+OUT["r4/sig"] = np.asarray(jnp.sqrt(jnp.diagonal(covn)) / norm)
+
 ref = reference_values(get_model({MSP_PAR!r}))
 for n, v in ref.items():
     if isinstance(v, HostDD):
@@ -150,9 +198,23 @@ for n, v in ref.items():
 
 
 @pytest.fixture(scope="module")
-def ref(tmp_path_factory):
-    return run_reference(_SCRIPT, tmp_path_factory.mktemp("ref") / "bin.npz",
-                         timeout=900)
+def in_phase():
+    return in_phase_copy()
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory, in_phase):
+    d = tmp_path_factory.mktemp("ref")
+    _, t = in_phase
+    sec = HostDD(t["tdb_sec_hi"], t["tdb_sec_lo"])
+    pos_m = orbit_pos_m(t["tdb_day"], sec, IN_PHASE["start_mjd"])
+    # the reference divides metres by C as the port's simulation did
+    assert np.array_equal(pos_m / C, t["ssb_obs_pos_ls"])
+    np.savez(d / "r4.npz", day=t["tdb_day"], hi=t["tdb_sec_hi"],
+             lo=t["tdb_sec_lo"], freq=t["freq_mhz"], err=t["error_us"],
+             flags=np.array([f["f"] for f in t["flags"]]), pos_m=pos_m)
+    return run_reference(_SCRIPT, d / "bin.npz", timeout=900,
+                         env={"R4_TABLE": str(d / "r4.npz")})
 
 
 @pytest.fixture(scope="module")
@@ -182,9 +244,10 @@ def test_golden_residuals_match_oracle(compiled, stem):
     """The port's residuals on each golden's state against its committed
     oracle: < 1 ns, the golden regression bar."""
     cm = compiled(stem)
-    assert type(cm.model.components[next(
-        n for n in cm.model.components if n.startswith("Binary"))]
-    ).binary_model_name == BINARY_OF[stem]
+    binaries = [c for n, c in cm.model.components.items()
+                if n.startswith("Binary")]
+    assert [type(c).binary_model_name for c in binaries] == (
+        [BINARY_OF[stem]] if stem in BINARY_OF else [])
     oracle = np.load(DATADIR / f"{stem}_oracle.npz")
     r = cm.time_residuals(cm.x0()).numpy()
     np.testing.assert_allclose(r, oracle["resid"], rtol=0, atol=1e-9)
@@ -379,3 +442,75 @@ def test_dmx_range_matrix_matches_per_range_masks(ref, compiled):
         loop = loop + pd[f"DMX_{i:04d}"] * torch.as_tensor(
             ref[f"msp/masks/DMX_{i:04d}"])
     assert torch.equal(dmx.dm_value(pd, cm.bundle), loop)
+
+
+# -- R4: the f64 step's spread under rounding, on the in-phase copy ---------
+def test_r4_step_spread_under_ordering_and_rounding(in_phase):
+    """On the in-phase MSP copy the f64 step moves by 1e-13 to 5e-12 sigma
+    when only the order of its sums changes (eight seeded permutations of
+    the TOAs: at most 1e-10), but by 5e-8 to 1e-7 sigma when each residual
+    moves by one ulp of its ~400 s delay (between 1e-8 and 1e-6): a
+    last-bit difference in one delay term, not the summation order, is
+    what can part two devices' steps by the 1.2e-7 sigma of ROADMAP C R4."""
+    model, table = in_phase
+    order = ordering_gaps(model, table, "cpu")
+    rounding = rounding_gaps(model, table, "cpu")
+    assert max(order) <= 1e-10, order
+    assert 1e-8 <= min(rounding) and max(rounding) <= 1e-6, rounding
+
+
+def test_r4_port_step_matches_reference_on_in_phase_copy(ref, in_phase):
+    """The port's f64 step on its in-phase copy against the reference's on
+    the same TOAs: residuals within 1e-11 s, and the step within 1e-5
+    sigma, that residual bound in units of the copy's 1 us TOA errors.
+    (The packages' transcendentals round differently: the residuals read
+    1.7e-13 s apart, the step 7.8e-7 sigma on ELAT.)"""
+    model, table = in_phase
+    cm = model.compile(table, device="cpu")
+    r = cm.time_residuals(cm.x0(), subtract_mean=False).numpy()
+    np.testing.assert_allclose(r, ref["r4/resid"], rtol=0, atol=1e-11)
+    dx, sig, _ = f64_step(cm)
+    gap = np.abs(dx.numpy() - ref["r4/dx"]) / sig.numpy()
+    assert float(gap.max()) <= 1e-5
+
+
+@pytest.mark.parametrize("ref_angle", [4.9604159750563515,
+                                       -0.26451337459883995, 1.2097965,
+                                       3.1])
+def test_sincos_about_is_sin_and_cos(ref_angle):
+    """The astrometry's sin and cos about a reference angle (R4's repair)
+    within 1 ulp of torch.sin and torch.cos, for offsets up to 1e-2 rad
+    (proper motion over decades, fit steps), and exactly sin and cos of
+    the reference at zero offset."""
+    rng = np.random.default_rng(0)
+    for span in (1e-8, 1e-5, 1e-2):
+        a = torch.as_tensor(ref_angle + rng.uniform(-span, span, 20000))
+        s, c = sincos_about(a, ref_angle)
+        for got, want in ((s, torch.sin(a)), (c, torch.cos(a))):
+            ulp = torch.as_tensor(np.spacing(np.abs(want.numpy())))
+            assert float(torch.max(torch.abs(got - want) / ulp)) <= 1.0
+    s0, c0 = sincos_about(torch.tensor(ref_angle, dtype=torch.float64),
+                          ref_angle)
+    assert float(s0) == math.sin(ref_angle)
+    assert float(c0) == math.cos(ref_angle)
+
+
+@pytest.mark.gpu
+def test_astrometry_delay_on_card_equals_cpu(in_phase):
+    """R4's repair on the card: the ecliptic astrometry delay of the
+    in-phase copy equals the CPU's bit for bit at all but a few TOAs (a
+    result within a few ulps of the small terms of a rounding boundary
+    may still round the other way) and within 1 ulp at every TOA."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    model, table = in_phase
+    terms = {}
+    for dev in ("cpu", "cuda"):
+        cm = model.compile(table, device=dev)
+        pd = cm._pdict(cm.x0())
+        comp = model.components["AstrometryEcliptic"]
+        terms[dev] = comp.delay_term(pd, cm.bundle, None).cpu()
+    diff = torch.abs(terms["cuda"] - terms["cpu"])
+    ulp = torch.as_tensor(np.spacing(np.abs(terms["cpu"].numpy())))
+    assert int(torch.count_nonzero(diff)) <= 2
+    assert float(torch.max(diff / ulp)) <= 1.0
