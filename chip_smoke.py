@@ -89,15 +89,35 @@ Phases, each of which raises on failure (exit code != 0):
    within 1e-8 of the CPU's.  Each fit prints its iterations,
    ``converged``, chi2 from start to end, the last noise floor, its host
    time and peak allocation, and one iteration's proposal and chi2 ladder
-   by the host clock and by device time.
+   by the host clock and by device time;
+8. the full-width pulsar, ``simulation.msp_full_par`` (the binary MSP
+   plus NE_SW free, a '@' TZR anchor, PHOFF, and 30-harmonic power-law
+   DM and chromatic noise: 169 design columns with the offset and a
+   180-column basis, so the joint Gram is q = 350), simulated at 1e5
+   TOAs with the orbit, the Sun and the TZR row in place: GLSFitter and
+   ``auto_fitter`` (downhill GLS) on the native rung, each launching
+   ``fused_gram_joint``'s wide path once a step or proposal and
+   ``fourier_gram`` never, and ``GLSFitter(fused=True)`` refused; the
+   mixed step from the par values at the step gates of the f64 step;
+   the card against the CPU on a 2048-TOA copy with 12 DMX ranges
+   (residuals 1e-11 s, f64 step 1e-8); ``fused_gram_joint`` at q = 350
+   against its plain version with T in f64 and f32, timed beside the
+   f64 GEMM of the same Y and its bound; then the card against the CPU
+   (residuals 1e-11 s, design columns 1e-9 of their max) on 2048-TOA
+   pulsars simulated by the port for the components the full-width
+   pulsar does not carry: glitch, WAVE and IFUNC (BT), ChromaticCM and
+   WaveX / DMWaveX / CMWaveX, SWX and piecewise spindown (FD, FDJUMP),
+   and bench.py's pulsar with the troposphere, its geometry columns
+   drawn from the seed.
 
 The last three lines are the kernels JSON (each kernel at the binary
 MSP's shapes, with its launches in the MSP's fits, and under ``bench``
 the same numbers at bench.py's pulsar; ``fused_gram_joint`` also with
-the launches of the downhill fits of phase 7), nvidia-smi's name and power
-limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
-without the package beside it, the script exits non-zero before printing
-any result.
+the launches of the downhill fits of phase 7 and, under ``full_width``,
+its q = 350 entry with the launches of phase 8's fits), nvidia-smi's
+name and power limit, and ``{"ok": true, "device": {...}}``.  Without a
+CUDA device, or without the package beside it, the script exits non-zero
+before printing any result.
 """
 
 from __future__ import annotations
@@ -138,12 +158,14 @@ from pint_tpu_torch.fitting.spread import (  # noqa: E402
     step_inputs,
 )
 from pint_tpu_torch.fitting.wls import _qr_gate, _wls_step  # noqa: E402
+from pint_tpu_torch.exceptions import PintTpuError  # noqa: E402
 from pint_tpu_torch.models.builder import get_model  # noqa: E402
 from pint_tpu_torch.ops import fourier, fused_gram  # noqa: E402
 from pint_tpu_torch.ops._cuda_build import build_libraries  # noqa: E402
 from pint_tpu_torch.simulation import (  # noqa: E402
     MSP_FREQS,
     make_test_pulsar,
+    msp_full_par,
     msp_par,
 )
 from pint_tpu_torch.timebase.hostdd import HostDD  # noqa: E402
@@ -685,13 +707,13 @@ def msp_phases(dev, rng):
                 toas=toas, gls=mixed)
 
 
-def card_vs_cpu(label, par, ntoa, sim):
+def card_vs_cpu(label, par, ntoa, sim, fourier=True):
     """The card against the port on the CPU on a small copy of a pulsar,
     the CPU under the card's solve policy so both run the same
-    algorithms: residuals within 1e-11 s, the f64 step and the fourier
-    step within 1e-8 (the same f32 basis values on both, correctly
-    rounded sin/cos, and f64 sums on both: only the summation order
-    differs)."""
+    algorithms: residuals within 1e-11 s, the f64 step and (``fourier``)
+    the fourier step within 1e-8 (the same f32 basis values on both,
+    correctly rounded sin/cos, and f64 sums on both: only the summation
+    order differs).  -> the residuals' and the f64 step's gaps."""
     small = {}
     os.environ["PINT_TPU_TORCH_SOLVE_IR"] = "force"
     try:
@@ -702,11 +724,18 @@ def card_vs_cpu(label, par, ntoa, sim):
             xs = c.x0()
             small[d] = (c.time_residuals(xs),
                         gls_step_woodbury(*step_inputs(c, xs))[0],
-                        gls_step_woodbury_fourier(*fourier_inputs(c, xs)))
+                        gls_step_woodbury_fourier(*fourier_inputs(c, xs))
+                        if fourier else None)
     finally:
         del os.environ["PINT_TPU_TORCH_SOLVE_IR"]
     dres = float(torch.max(torch.abs(small["cuda"][0].cpu() - small["cpu"][0])))
     dstep = rel(small["cuda"][1], small["cpu"][1])
+    if not fourier:
+        log(f"{label}: card vs cpu at {ntoa} TOAs: residuals {dres!r} s, "
+            f"f64 step {dstep!r}")
+        check(dres <= 1e-11, f"card residuals differ from the CPU by {dres} s")
+        check(dstep <= 1e-8, f"card f64 step differs from the CPU by {dstep}")
+        return dict(resid_s=dres, f64_step_rel=dstep)
     (fdx_c, fcov_c, fchi_c, _), (fdx_h, fcov_h, fchi_h, _) = (
         small["cuda"][2], small["cpu"][2])
     fdx = rel(fdx_c, fdx_h)
@@ -718,6 +747,7 @@ def card_vs_cpu(label, par, ntoa, sim):
     check(dstep <= 1e-8, f"card f64 step differs from the CPU by {dstep}")
     check(fdx <= 1e-8 and fchi <= 1e-8,
           f"card fourier step differs from the CPU by dx {fdx}, chi2 {fchi}")
+    return dict(resid_s=dres, f64_step_rel=dstep, fourier_dx_rel=fdx)
 
 
 def sigma_gap(label, par, ntoa, sim):
@@ -953,6 +983,157 @@ def entry_point_phase(bench_toas, msp):
     return out
 
 
+#: the components the full-width pulsar does not carry, each in the par
+#: file of the golden set that holds it
+GOLDEN_DIR = Path(__file__).resolve().parent / "tests" / "datafile"
+COMPONENT_PARS = {
+    "glitch, wave, ifunc (BT)": "golden7",
+    "chromatic CM, WaveX, DMWaveX, CMWaveX": "golden19",
+    "SWX, piecewise spindown, FD, FDJUMP": "golden20",
+}
+
+
+def component_pars():
+    """label -> par text of the components phase 8 holds card vs CPU:
+    COMPONENT_PARS's golden files, and bench.py's pulsar with the
+    troposphere."""
+    out = {label: (GOLDEN_DIR / f"{stem}.par").read_text()
+           for label, stem in COMPONENT_PARS.items()}
+    out["troposphere (bench.py's pulsar)"] = (BENCH_PAR
+                                              + "CORRECT_TROPOSPHERE Y\n")
+    return out
+
+
+def troposphere_masks(n, rng):
+    """The troposphere's per-TOA geometry columns, drawn from the seed:
+    source elevations 10-90 degrees, observatory latitudes within +-60
+    degrees (both hemispheres, the seasonal phase's two branches), and
+    altitudes up to 2.5 km, days of year over a whole year."""
+    return {"TROPO:sin_elev": np.sin(np.radians(rng.uniform(10.0, 90.0, n))),
+            "TROPO:lat": np.radians(rng.uniform(-60.0, 60.0, n)),
+            "TROPO:alt": rng.uniform(0.0, 2500.0, n),
+            "TROPO:doy": rng.uniform(0.0, 365.25, n)}
+
+
+def components_card_vs_cpu(rng, ntoa=2048):
+    """Each of ``component_pars()`` on a pulsar simulated by the port (the orbit
+    inside its phases, the Sun at the barycentre for SWX), the card
+    against the CPU: residuals within 1e-11 s, every design column within
+    1e-9 of its own max.  -> label -> (residual gap s, worst column)."""
+    out = {}
+    for label, par in component_pars().items():
+        m, t = make_test_pulsar(par, ntoa=ntoa, device="cpu", **MSP_SIM)
+        if "troposphere" in label:
+            t["masks"] = troposphere_masks(ntoa, rng)
+        res = {}
+        for d in ("cpu", "cuda"):
+            c = m.compile(t, device=d)
+            xs = c.x0()
+            res[d] = (c.time_residuals(xs).cpu(), c.design_matrix(xs).cpu())
+        dres = float(torch.max(torch.abs(res["cuda"][0] - res["cpu"][0])))
+        scale = torch.clamp_min(torch.max(torch.abs(res["cpu"][1]), dim=0)
+                                .values, 1e-300)
+        dcol = float(torch.max(torch.max(torch.abs(res["cuda"][1]
+                                                   - res["cpu"][1]), dim=0)
+                               .values / scale))
+        if "troposphere" in label:
+            tropo = m.components["TroposphereDelay"].delay_term(
+                None, m.compile(t, device="cpu").bundle, None)
+            check(float(torch.min(tropo)) > 0.0,
+                  "the troposphere delay is zero at some TOA")
+        log(f"{label}: card vs cpu at {ntoa} TOAs: residuals {dres!r} s, "
+            f"worst design column {dcol!r} of its max "
+            f"({res['cpu'][1].shape[1]} columns)")
+        check(dres <= 1e-11, f"{label}: card residuals off by {dres} s")
+        check(dcol <= 1e-9, f"{label}: card design column off by {dcol}")
+        out[label] = dict(resid_s=dres, design_col_rel=dcol)
+    return out
+
+
+def full_width_phase(dev, rng):
+    """The full-width pulsar (``msp_full_par``: q = 350) at 1e5 TOAs, and
+    the card against the CPU on the components it does not carry.
+    -> what the kernels line reports."""
+    par = msp_full_par(MSP_NDMX, seed=0)
+    t0 = time.perf_counter()
+    model, toas = make_test_pulsar(par, ntoa=NTOA, device=dev, **MSP_SIM)
+    log(f"full: simulated {NTOA} TOAs in {time.perf_counter() - t0:.2f} s")
+    gls, gls_l = drive("mixed", lambda: GLSFitter(toas, model, device=dev),
+                       "full")
+    check(gls_l["fused_gram_joint wide"] == gls_l["fused_gram_joint"],
+          f"the full-width joint Gram left the wide path: {gls_l}")
+    try:
+        GLSFitter(toas, get_model(par), device=dev,
+                  fused=True).fit_toas(maxiter=1)
+    except PintTpuError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("GLSFitter(fused=True) was not refused on the "
+                             "full-width pulsar")
+    log(f"full: GLSFitter(fused=True) refused: {refused}")
+    _, downhill = downhill_fit(
+        "full", lambda: auto_fitter(toas, get_model(par)), DownhillGLSFitter,
+        wide=True)
+
+    cm = get_model(par).compile(toas, device=dev)
+    x = cm.x0()
+    args = step_inputs(cm, x)
+    log(f"full shapes: n={args[1].shape[0]} design columns "
+        f"{args[1].shape[1]} basis {args[3].shape[1]}")
+    check(args[1].shape[1] == 169 and args[3].shape[1] == 180,
+          f"full-width shapes {tuple(args[1].shape)} {tuple(args[3].shape)}")
+    gates = step_gates("full mixed",
+                       gls_step_woodbury_mixed(*args, normalized_cov=True),
+                       gls_step_woodbury(*args, normalized_cov=True))
+    small = card_vs_cpu("full", msp_full_par(MSP_SMALL["ndmx"], seed=0),
+                        MSP_SMALL["ntoa"], {"freqs": MSP_FREQS},
+                        fourier=False)
+
+    T, A, w = gram_inputs(cm, x)
+    n, k = T.shape
+    p1 = A.shape[1]
+    check(k + p1 == 350, f"full-width joint Gram q = {k + p1}")
+    fj = (fused_gram.fused_gram_joint_cuda, fused_gram.fused_gram_joint_plain)
+    errs = [kernel_vs_plain("fused_gram_joint", *fj, T, A, w),
+            kernel_vs_plain("fused_gram_joint", *fj, T.float(), A, w)]
+    log(f"full fused_gram_joint vs plain at q = 350 (T f64, f32): {errs}")
+    Ys = (torch.cat([T.float(), A.float()], dim=1)
+          * torch.sqrt(w).float()[:, None]).contiguous()
+    Yd = Ys.double()
+    times = time_kernel(lambda: fused_gram.fused_gram_joint_cuda(T, A, w),
+                        lambda: fused_gram.fused_gram_joint_plain(T, A, w),
+                        lambda: torch.matmul(Yd.T, Yd))
+    times["library_f32_ms"] = cuda_ms(lambda: torch.matmul(Ys.T, Ys))
+    pass_times(times, "wide_")
+    del times["device_parts"], Ys, Yd
+    bnd = gram_bound(T, A, w)
+    log(f"full fused_gram_joint at (n, k, p1) = {[n, k, p1]} (ms, median): "
+        f"{times}, bound {bnd}")
+    steps = {mode: host_ms(lambda m=mode: gauss_newton_step(cm, x, m),
+                           reps=5, warm=1)
+             for mode in ("mixed", "f64")}
+    log(f"full step (ms, median, host clock to sync): {steps}")
+    comps = components_card_vs_cpu(rng)
+    entry = dict(
+        shape=[n, k, p1],
+        launches=gls_l["fused_gram_joint"] + downhill["launches"][
+            "fused_gram_joint"],
+        launches_by_fit={"gls": gls_l["fused_gram_joint"],
+                         "downhill_gls": downhill["launches"][
+                             "fused_gram_joint"]},
+        max_abs_err=max(e[0] for e in errs),
+        max_err_vs_plain=max(e[1] for e in errs),
+        bound_ms=bnd[0], bound_by=bnd[1], **times,
+        gls_fit=dict(steps=gls.steps_taken, chi2=gls.chi2,
+                     rung=gls.guard_report.rung),
+        downhill_fit={key: downhill[key] for key in (
+            "niter", "converged", "chi2_start", "chi2", "wall_s",
+            "max_memory_allocated")},
+        vs_f64=gates, step_ms=steps, card_vs_cpu=small,
+        components_card_vs_cpu=comps, fused_refused=refused)
+    return entry
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1129,6 +1310,10 @@ def main():
 
     # 7. the default entry point: auto_fitter -> the downhill fitters
     entry = entry_point_phase(toas, msp)
+    del msp["toas"], msp["gls"]
+
+    # 8. the full-width pulsar (q = 350) and the remaining components
+    full = full_width_phase(dev, rng)
 
     # the kernels line: each kernel at the binary MSP's shapes (launches
     # from its fits), and under "bench" the same numbers at bench.py's
@@ -1181,6 +1366,7 @@ def main():
     rows[0]["downhill_launches"] = {
         k: entry[k]["launches"]["fused_gram_joint"] for k in ("bench", "msp")}
     rows[0]["default_entry_point"] = entry
+    rows[0]["full_width"] = full
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

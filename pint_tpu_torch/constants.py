@@ -40,3 +40,10 @@ DM_CONST = 1.0 / 2.41e-4
 
 #: one cycle per Julian year, Hz (power-law red-noise reference frequency)
 F_YR = 1.0 / SECS_PER_JULIAN_YEAR
+
+#: IAU 2006 Resolution B3: dTDB/dTCB = 1 - L_B, and TDB - TCB at the
+#: 1977-01-01 origin (seconds)
+L_B = 1.550519768e-8
+TDB0 = -6.55e-5
+
+PC = 3.0856775814913673e16  # m (parsec, derived from AU / arcsec)

@@ -20,16 +20,22 @@ that both packages compute on byte-identical inputs.  The dict holds:
   indexed families such as the DMX ranges, BT pieces and FB terms are
   made in the same order as where the state came from), and ``TNREDC``
   / ``PLANET_SHAPIRO`` carried through ``ref``.  Per-range masks
-  (``DMX_####``, ``BTX_####``) ride in the bundle's ``masks``.
+  (``DMX_####``, ``BTX_####``, ``SWX_####``, ``PW_<i>``) ride in the
+  bundle's ``masks``; a pair parameter's ``ref`` (WAVEn, IFUNCn) is its
+  two floats.  A model with a TZR anchor takes its one-row TZR table
+  from the bundle's ``"tzr"`` entry, a table of the same layout.
 """
 
 from __future__ import annotations
 
 from pint_tpu_torch.device import resolve_device
 from pint_tpu_torch.models.builder import COMPONENTS
+from pint_tpu_torch.models.parameter import pairParameter
 from pint_tpu_torch.models.timing_model import TimingModel, reference_values
 from pint_tpu_torch.timebase.hostdd import HostDD
-from pint_tpu_torch.toas.bundle import make_bundle
+
+#: what the port leaves to later work, by the component or parameter
+_LATER = "ROADMAP A7 (DMJUMP and ScaleDmError, with the wideband fit)"
 
 
 def _internal(v):
@@ -52,7 +58,7 @@ def state_from_numpy(state: dict, device=None):
         name = spec["name"]
         if name not in COMPONENTS:
             raise NotImplementedError(
-                f"component {name} is outside the ported slice; ROADMAP A6"
+                f"component {name} is outside the ported slice; {_LATER}"
             )
         c = COMPONENTS[name]()
         for mname in spec.get("masks", ()):
@@ -69,9 +75,12 @@ def state_from_numpy(state: dict, device=None):
     for n, v in state["ref"].items():
         if n not in params:
             raise NotImplementedError(
-                f"parameter {n} is outside the ported slice; ROADMAP A6"
+                f"parameter {n} is outside the ported slice; {_LATER}"
             )
-        params[n]._internal = _internal(v)
+        if isinstance(params[n], pairParameter):
+            params[n]._internal = (float(v[0]), float(v[1]))
+        else:
+            params[n]._internal = _internal(v)
         params[n].frozen = n not in free
     model.setup()
     if model.free_params != free:
@@ -79,6 +88,5 @@ def state_from_numpy(state: dict, device=None):
             f"free-parameter order {model.free_params} differs from the "
             f"state's {free}"
         )
-    table = state["bundle"]
-    bundle = make_bundle(table, model._build_masks(table), device)
+    bundle = model.make_bundle(state["bundle"], device)
     return model, bundle, reference_values(model)

@@ -5,42 +5,68 @@ selection rule: a component is included when the par text names a
 parameter (or mask family, or indexed-family member such as DMX_0017)
 that it alone of the ported non-binary components accepts; the binary
 model is chosen by the BINARY line alone; SolarSystemShapiro comes with
-astrometry.  Ported: equatorial and ecliptic astrometry, solar-system
-Shapiro, DM, DMX, FD, FDJUMP, JUMP, spindown, the ten binary models,
-EFAC/EQUAD, ECORR and power-law red noise.  Any other par line raises
-NotImplementedError naming the ROADMAP item that will port it.
+astrometry.  Every narrowband component of the reference is ported;
+DMJUMP, DMEFAC and DMEQUAD, which act only on wideband DM measurements,
+raise NotImplementedError naming ROADMAP A7.  A line no component
+accepts is left out with an ``UnknownParameterWarning`` and kept in
+``model.unrecognized``, as the reference's builder does.  ``UNITS TCB``
+converts the parameters to TDB (``tcb_conversion.py``).
 """
 
 from __future__ import annotations
 
 import io
+import warnings
 from collections import OrderedDict
 
+from pint_tpu_torch.models.absolute_phase import AbsPhase
 from pint_tpu_torch.models.astrometry import (
     Astrometry,
     AstrometryEcliptic,
     AstrometryEquatorial,
 )
+from pint_tpu_torch.models.chromatic import ChromaticCM
 from pint_tpu_torch.models.dispersion import DispersionDM, DispersionDMX
 from pint_tpu_torch.models.frequency_dependent import FD, FDJump
+from pint_tpu_torch.models.glitch import Glitch
+from pint_tpu_torch.models.ifunc import IFunc
 from pint_tpu_torch.models.jump import PhaseJump
-from pint_tpu_torch.models.noise import EcorrNoise, PLRedNoise, ScaleToaError
+from pint_tpu_torch.models.noise import (
+    EcorrNoise,
+    PLChromNoise,
+    PLDMNoise,
+    PLRedNoise,
+    ScaleToaError,
+)
 from pint_tpu_torch.models.parameter import (
     MJDParameter,
     floatParameter,
     strParameter,
 )
+from pint_tpu_torch.models.phase_offset import PhaseOffset
+from pint_tpu_torch.models.piecewise import PiecewiseSpindown
 from pint_tpu_torch.models.pulsar_binary import BINARY_MODELS
 from pint_tpu_torch.models.solar_system_shapiro import SolarSystemShapiro
+from pint_tpu_torch.models.solar_wind import (
+    SolarWindDispersion,
+    SolarWindDispersionX,
+)
 from pint_tpu_torch.models.spindown import Spindown
+from pint_tpu_torch.models.tcb_conversion import convert_tcb_tdb
 from pint_tpu_torch.models.timing_model import TimingModel
+from pint_tpu_torch.models.troposphere import TroposphereDelay
+from pint_tpu_torch.models.wave import CMWaveX, DMWaveX, Wave, WaveX
 
 #: the non-binary components the builder chooses among
 SELECTABLE = {
     cls.__name__: cls
-    for cls in (AstrometryEcliptic, AstrometryEquatorial, DispersionDM,
-                DispersionDMX, EcorrNoise, FD, FDJump, PLRedNoise,
-                PhaseJump, ScaleToaError, SolarSystemShapiro, Spindown)
+    for cls in (AbsPhase, AstrometryEcliptic, AstrometryEquatorial,
+                CMWaveX, ChromaticCM, DMWaveX, DispersionDM, DispersionDMX,
+                EcorrNoise, FD, FDJump, Glitch, IFunc, PLChromNoise,
+                PLDMNoise, PLRedNoise, PhaseJump, PhaseOffset,
+                PiecewiseSpindown, ScaleToaError, SolarSystemShapiro,
+                SolarWindDispersion, SolarWindDispersionX, Spindown,
+                TroposphereDelay, Wave, WaveX)
 }
 #: every component a state may name (``convert.state_from_numpy``)
 COMPONENTS = {**SELECTABLE,
@@ -72,16 +98,20 @@ def parse_parfile(text: str) -> "OrderedDict[str, list[list[str]]]":
     return out
 
 
+#: par lines of the reference's wideband-only components (DMJUMP, and
+#: ScaleDmError's DMEFAC/DMEQUAD), left to ROADMAP A7
+WIDEBAND_ONLY = ("DMJUMP", "DMEFAC", "DMEQUAD")
+
+
+class UnknownParameterWarning(UserWarning):
+    """Par lines that no component accepts (the model still builds)."""
+
+
 def _not_ported(name: str) -> NotImplementedError:
-    if name == "UNITS":
-        item = "A6 (TCB parameter conversion)"
-    else:
-        item = ("A6 (the remaining timing-model components: solar wind, "
-                "glitch, wave, ifunc, piecewise spindown, absolute phase, "
-                "troposphere, chromatic, DMJUMP, phase offset, and the DM "
-                "and chromatic noise)")
     return NotImplementedError(
-        f"par line {name!r} is outside the ported slice; ROADMAP {item}"
+        f"par line {name!r} acts only on wideband DM measurements and is "
+        "outside the ported slice; ROADMAP A7 (DMJUMP and ScaleDmError, "
+        "with the wideband fit)"
     )
 
 
@@ -126,14 +156,18 @@ def _top_param(name, tokens):
 
 
 def get_model(par_text: str) -> TimingModel:
-    """Par-file text -> validated TimingModel of the slice's components."""
+    """Par-file text -> validated TimingModel of the ported components."""
     pardict = parse_parfile(par_text)
     units = pardict.get("UNITS", [["TDB"]])[0][0].upper()
-    if units != "TDB":
-        raise _not_ported("UNITS")
+    if units not in ("TDB", "TCB"):
+        raise ValueError(f"UNITS {units!r}: only TDB and TCB par files")
+    for name in pardict:
+        if name in WIDEBAND_ONLY:
+            raise _not_ported(name)
     comps = _choose(pardict)
     model = TimingModel(components=comps)
     counters: dict[tuple[int, str], int] = {}
+    unknown = {}
     for name, entries in pardict.items():
         if name in _IGNORE or name in ("UNITS", "BINARY"):
             continue
@@ -156,10 +190,16 @@ def get_model(par_text: str) -> TimingModel:
                 routed = True
                 break
         if not routed:
-            raise _not_ported(name)
+            unknown[name] = entries
+    if unknown:
+        warnings.warn(f"unrecognized par-file parameters {sorted(unknown)}",
+                      UnknownParameterWarning)
+    model.unrecognized = unknown
     psr = next((model.top_params[k] for k in ("PSR", "PSRJ", "PSRB")
                 if k in model.top_params), None)
     model.name = psr.value if psr is not None else ""
+    if units == "TCB":
+        convert_tcb_tdb(model)
     model.setup()
     model.validate()
     return model

@@ -11,11 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pint_tpu_torch.constants import (
-    DM_CONST,
-    SECS_PER_DAY,
-    SECS_PER_JULIAN_YEAR,
-)
+from pint_tpu_torch.constants import DM_CONST, SECS_PER_JULIAN_YEAR
 from pint_tpu_torch.models.component import DelayComponent
 from pint_tpu_torch.models.parameter import (
     MJDParameter,
@@ -23,6 +19,7 @@ from pint_tpu_torch.models.parameter import (
     prefix_index,
 )
 from pint_tpu_torch.ops.taylor import taylor_horner
+from pint_tpu_torch.toas.bundle import table_mjd
 
 
 class DispersionDM(DelayComponent):
@@ -128,9 +125,7 @@ class DispersionDMX(DelayComponent):
         ``DMX_####`` where it carries them (state exported by the JAX
         package), else from DMXR1/DMXR2 (both ends inclusive)."""
         given = toas.get("masks") or {}
-        mjd = np.asarray(toas["tdb_day"], np.float64) + (
-            np.asarray(toas["tdb_sec_hi"], np.float64)
-            + np.asarray(toas["tdb_sec_lo"], np.float64)) / SECS_PER_DAY
+        mjd = table_mjd(toas)
         cols = []
         for i in self.dmx_indices:
             name = f"DMX_{i:04d}"

@@ -1,14 +1,15 @@
-"""Noise components: white rescaling, ECORR and power-law red noise.
+"""Noise components: white rescaling, ECORR and the power-law red, DM and
+chromatic noise.
 
-Counterpart of ``pint_tpu/models/noise.py`` for three of its noise
-components, through the same two consumer interfaces:
+Counterpart of ``pint_tpu/models/noise.py`` for all of its narrowband
+noise components, through the same two consumer interfaces:
 
   scaled_sigma(pdict, bundle, sigma_s) -> per-TOA white sigma (seconds)
   basis_weight(pdict, bundle) -> (basis (n, k), weight (k,)) or None
 
 The correlated covariance never forms as n x n: it enters as
-C = N + T phi T^T with k << n.  The red-noise sin/cos basis depends only
-on the TOA times, so it is computed once on the host in IEEE f64 numpy
+C = N + T phi T^T with k << n.  The power-law sin/cos bases depend only
+on the TOA times, so they are computed once on the host in IEEE f64 numpy
 (:func:`host_fourier_basis`) and rides in the bundle's mask columns.
 """
 
@@ -23,6 +24,7 @@ from pint_tpu_torch.constants import F_YR, SECS_PER_DAY
 from pint_tpu_torch.models.component import NoiseComponent
 from pint_tpu_torch.models.parameter import floatParameter, maskParameter
 from pint_tpu_torch.ops.scalarmath import power_p
+from pint_tpu_torch.toas.bundle import table_mjd
 
 #: largest gap between two TOAs of one ECORR observing epoch (seconds)
 ECORR_EPOCH_GAP_S = 10.0
@@ -143,10 +145,7 @@ class EcorrNoise(NoiseComponent):
 
     def extra_masks(self, toas) -> dict:
         """Quantization matrices, computed once at compile time."""
-        mjd = np.asarray(toas["tdb_day"], np.float64) + (
-            np.asarray(toas["tdb_sec_hi"], np.float64)
-            + np.asarray(toas["tdb_sec_lo"], np.float64)
-        ) / SECS_PER_DAY
+        mjd = table_mjd(toas)
         return {f"{n}:U": quantize_epochs(mjd, self.params[n].select(toas))
                 for n in self.ecorr_params}
 
@@ -216,26 +215,20 @@ def powerlaw_phi(f, tspan, log10_amp, gamma):
     return torch.clamp_min(amp2_k * (f / F_YR) ** (-gamma) / tspan, 1e-30)
 
 
-class PLRedNoise(NoiseComponent):
-    """Power-law achromatic red noise (TNREDAMP/TNREDGAM/TNREDC)."""
+class _FourierBasisNoise(NoiseComponent):
+    """Power-law Fourier-basis noise: the [sin | cos] basis of ``_nharm()``
+    harmonics over the data span, computed on the host at compile time
+    (``basis_key``), each row scaled by ``_chromatic`` and weighted by the
+    power law of the component's (AMP, GAM) parameters."""
 
-    category = "pl_red_noise"
     introduces_correlated_errors = True
-
-    def __init__(self):
-        super().__init__()
-        self.add_param(
-            floatParameter("TNREDAMP", units="log10(strain)",
-                           aliases=("TNRedAmp",))
-        )
-        self.add_param(floatParameter("TNREDGAM", aliases=("TNRedGam",)))
-        self.add_param(floatParameter("TNREDC", aliases=("TNRedC",)))
+    _AMP = _GAM = _NHARM = ""
 
     def validate(self, model):
-        self.require("TNREDAMP", "TNREDGAM")
+        self.require(self._AMP, self._GAM)
 
     def _nharm(self):
-        v = self.params["TNREDC"].value
+        v = self.params[self._NHARM].value
         return int(v) if v is not None else 30
 
     def basis_key(self) -> str:
@@ -247,10 +240,32 @@ class PLRedNoise(NoiseComponent):
     def extra_masks(self, toas) -> dict:
         return {self.basis_key(): host_fourier_basis(toas, self._nharm())}
 
+    def _chromatic(self, pdict, bundle):
+        return None
+
     def basis_weight(self, pdict, bundle):
         F, f, tspan = fourier_basis(bundle, self._nharm(), self.basis_key())
-        phi = powerlaw_phi(f, tspan, pdict["TNREDAMP"], pdict["TNREDGAM"])
+        chrom = self._chromatic(pdict, bundle)
+        if chrom is not None:
+            F = F * chrom[:, None]
+        phi = powerlaw_phi(f, tspan, pdict[self._AMP], pdict[self._GAM])
         return F, phi
+
+
+class PLRedNoise(_FourierBasisNoise):
+    """Power-law achromatic red noise (TNREDAMP/TNREDGAM/TNREDC)."""
+
+    category = "pl_red_noise"
+    _AMP, _GAM, _NHARM = "TNREDAMP", "TNREDGAM", "TNREDC"
+
+    def __init__(self):
+        super().__init__()
+        self.add_param(
+            floatParameter("TNREDAMP", units="log10(strain)",
+                           aliases=("TNRedAmp",))
+        )
+        self.add_param(floatParameter("TNREDGAM", aliases=("TNRedGam",)))
+        self.add_param(floatParameter("TNREDC", aliases=("TNRedC",)))
 
     def fourier_spec(self, pdict, bundle):
         """(t_seconds (n,), harmonic freqs (k,), phi (2k,)): the pure
@@ -261,3 +276,40 @@ class PLRedNoise(NoiseComponent):
         phi = powerlaw_phi(torch.cat([f, f]), tspan, pdict["TNREDAMP"],
                            pdict["TNREDGAM"])
         return t, f, phi
+
+
+class PLDMNoise(_FourierBasisNoise):
+    """Power-law DM noise (TNDMAMP/TNDMGAM/TNDMC): basis rows scaled by
+    (1400 MHz / f)^2, so the amplitudes share the red-noise convention."""
+
+    category = "pl_dm_noise"
+    _AMP, _GAM, _NHARM = "TNDMAMP", "TNDMGAM", "TNDMC"
+
+    def __init__(self):
+        super().__init__()
+        self.add_param(floatParameter("TNDMAMP", units="log10",
+                                      aliases=("TNDMAmp",)))
+        self.add_param(floatParameter("TNDMGAM", aliases=("TNDMGam",)))
+        self.add_param(floatParameter("TNDMC"))
+
+    def _chromatic(self, pdict, bundle):
+        return torch.square(1400.0 / bundle.freq_mhz)
+
+
+class PLChromNoise(_FourierBasisNoise):
+    """Power-law chromatic noise (TNCHROMAMP/TNCHROMGAM/TNCHROMC): basis
+    rows scaled by (1400 MHz / f)^CMIDX, the index of ChromaticCM (4
+    without it)."""
+
+    category = "pl_chrom_noise"
+    _AMP, _GAM, _NHARM = "TNCHROMAMP", "TNCHROMGAM", "TNCHROMC"
+
+    def __init__(self):
+        super().__init__()
+        self.add_param(floatParameter("TNCHROMAMP", units="log10",
+                                      aliases=("TNChromAmp",)))
+        self.add_param(floatParameter("TNCHROMGAM", aliases=("TNChromGam",)))
+        self.add_param(floatParameter("TNCHROMC"))
+
+    def _chromatic(self, pdict, bundle):
+        return (1400.0 / bundle.freq_mhz) ** pdict.get("CMIDX", 4.0)

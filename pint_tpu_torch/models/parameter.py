@@ -1,15 +1,16 @@
-"""Timing-model parameters, cut to the kinds the GLS fit-step slice uses.
+"""Timing-model parameters, cut to the kinds the ported components use.
 
 Counterpart of ``pint_tpu/models/parameter.py``: float (f64 or
-double-double), MJD epoch, angle, mask, bool and string parameters.  Each
-declares its par-file ``units`` and a ``scale_to_internal`` factor to the
-unit-free internal convention (seconds, radians, Hz) the kernels read.
+double-double), MJD epoch, angle, mask, pair, bool and string parameters.
+Each declares its par-file ``units`` and a ``scale_to_internal`` factor to
+the unit-free internal convention (seconds, radians, Hz) the kernels read.
 
 Internal values, as :func:`reference_values` hands them to kernels:
 
 - f64 float, angle, mask: a Python float;
 - double-double float (F0): a :class:`HostDD` scalar;
-- epoch: ``(mjd_int, HostDD seconds-of-day)``.
+- epoch: ``(mjd_int, HostDD seconds-of-day)``;
+- pair: a ``(float, float)`` tuple.
 """
 
 from __future__ import annotations
@@ -314,6 +315,24 @@ class maskParameter(floatParameter):
         flag = self.key.lstrip("-")
         want = str(self.key_value[0])
         return np.array([str(f.get(flag, "")) == want for f in toas["flags"]])
+
+
+class pairParameter(Parameter):
+    """Two-part parameter (WAVE1: sin and cos amplitudes; IFUNC1: MJD and
+    seconds).  Its internal value is a (float, float) tuple, static in
+    the kernels, and it is never fitted."""
+
+    def set_from_tokens(self, tokens):
+        self.value = (_parse_float_str(tokens[0]),
+                      _parse_float_str(tokens[1]))
+
+    def _to_internal(self, v):
+        a, b = v
+        return (float(a) * self.scale_to_internal,
+                float(b) * self.scale_to_internal)
+
+    def _from_internal(self, i):
+        return (i[0] / self.scale_to_internal, i[1] / self.scale_to_internal)
 
 
 def prefix_index(name: str, prefix: str) -> Optional[int]:

@@ -4,7 +4,8 @@ Counterpart of ``pint_tpu/models/timing_model.py``.  A TimingModel is an
 ordered bag of components (delays folded in category order, each seeing
 the accumulated delay; phase components summed at the delayed time).
 ``compile(toas, device)`` freezes it against a TOA table: mask parameters
-become static 0/1 columns, and the result is a :class:`CompiledModel`
+become static 0/1 columns, a TZR anchor (AbsPhase) brings its one-row
+bundle along, and the result is a :class:`CompiledModel`
 whose kernels are pure functions of ``x`` — the f64 vector of deltas of
 the free parameters from their reference values (internal units).  x = 0
 reproduces the reference model; ``commit(x)`` folds deltas back into the
@@ -42,6 +43,8 @@ class TimingModel:
         self.name = name
         self.components: dict[str, Component] = {}
         self.top_params: dict[str, Parameter] = {}
+        # par lines no component accepted (models/builder.py::get_model)
+        self.unrecognized: dict = {}
         for c in components:
             self.components[type(c).__name__] = c
         self.setup()
@@ -92,13 +95,17 @@ class TimingModel:
             out.extend(c.free_params)
         return out
 
-    def _build_masks(self, toas) -> dict:
+    def _build_masks(self, toas, noise: bool = True) -> dict:
         """Mask selections and noise bases: taken from the table's
         precomputed ``masks`` when present (byte-identical state carried
-        across from the JAX package), else computed on the host."""
+        across from the JAX package), else computed on the host.
+        ``noise=False`` leaves the noise components out (a TZR row needs
+        only what the delays and phases read)."""
         given = toas.get("masks") or {}
         masks = {}
         for c in self._ordered_components():
+            if not noise and isinstance(c, NoiseComponent):
+                continue
             for n in c.mask_params:
                 masks[n] = (
                     given[n] if n in given
@@ -112,6 +119,32 @@ class TimingModel:
                 )
         return masks
 
+    @property
+    def tzr_anchor(self):
+        """The AbsPhase component when it sets TZRMJD, else None."""
+        absph = self.components.get("AbsPhase")
+        return absph if absph is not None and absph.anchored else None
+
+    def make_bundle(self, toas, device) -> TOABundle:
+        """Host TOA table -> device bundle with this model's masks, and
+        with its TZR row: the table's ``"tzr"`` row when it carries one,
+        else the barycentric row of ``AbsPhase.tzr_table``."""
+        bundle = make_bundle(toas, self._build_masks(toas), device)
+        return self._with_tzr(bundle, toas.get("tzr"))
+
+    def _with_tzr(self, bundle: TOABundle, tzr_table=None) -> TOABundle:
+        anchor = self.tzr_anchor
+        if anchor is None:
+            return bundle._replace(tzr=None)
+        if tzr_table is None:
+            if bundle.tzr is not None:
+                return bundle
+            tzr_table = anchor.tzr_table()
+        tzr = make_bundle(tzr_table, self._build_masks(tzr_table,
+                                                       noise=False),
+                          bundle.device)
+        return bundle._replace(tzr=tzr)
+
     def compile(self, toas, device=None,
                 subtract_mean: bool = True) -> "CompiledModel":
         """Freeze against a host TOA table, or against a TOABundle that
@@ -121,10 +154,9 @@ class TimingModel:
                 raise ValueError(
                     f"bundle is on {toas.device}, device={device!r} asked"
                 )
-            bundle = toas
+            bundle = self._with_tzr(toas)
         else:
-            device = resolve_device(device)
-            bundle = make_bundle(toas, self._build_masks(toas), device)
+            bundle = self.make_bundle(toas, resolve_device(device))
         return CompiledModel(self, bundle, subtract_mean=subtract_mean)
 
     def __repr__(self):
@@ -239,9 +271,10 @@ class CompiledModel:
             d = d + c.delay_term(pd, self.bundle, d)
         return d
 
-    def phase(self, x) -> Phase:
+    def phase(self, x, bundle: Optional[TOABundle] = None) -> Phase:
+        """Model phase at each row of ``bundle`` (the data by default)."""
+        b = self.bundle if bundle is None else bundle
         pd = self._pdict(x)
-        b = self.bundle
         d = torch.zeros(b.ntoa, dtype=F64, device=self.device)
         for c in self.model.delay_components:
             d = d + c.delay_term(pd, b, d)
@@ -249,6 +282,16 @@ class CompiledModel:
         for c in self.model.phase_components:
             total = total + c.phase_term(pd, b, d)
         return Phase.from_dd(total)
+
+    def absolute_phase(self, x) -> Phase:
+        """The data's model phase minus the TZR row's when the model has
+        an AbsPhase anchor (carry-normalized ``Phase.__sub__``), else the
+        raw model phase.  The TZR phase is evaluated here, at x, so it is
+        inside every derivative and batched evaluation of x."""
+        ph = self.phase(x)
+        if self.bundle.tzr is not None:
+            ph = ph - self.phase(x, bundle=self.bundle.tzr)[0]
+        return ph
 
     def spin_frequency(self, x):
         """Instantaneous spin frequency at each TOA."""
@@ -259,8 +302,9 @@ class CompiledModel:
         raise ValueError("no spindown component in model")
 
     def phase_residuals(self, x):
-        """Phase residuals in cycles (f64), no mean subtraction."""
-        ph = self.phase(x)
+        """Phase residuals in cycles (f64), no mean subtraction, from the
+        TZR-anchored phase."""
+        ph = self.absolute_phase(x)
         if self.track_mode == "use_pulse_numbers":
             b = self.bundle
             return (ph.int_ - b.pulse_number + b.padd) + ph.frac

@@ -10,6 +10,16 @@ seconds, carried exactly), so both packages build the same TOAs.
 :func:`msp_par` writes the par text of the binary millisecond pulsar that
 ``chip_smoke.py`` and the tests drive: a NANOGrav-class ELL1 MSP modelled
 on J1909-3744, with DMX ranges, FD, a JUMP and red noise.
+:func:`msp_full_par` adds the solar wind, a TZR anchor, PHOFF and the DM
+and chromatic Gaussian-process noise of EPTA- and IPTA-style models.
+
+A model with a TZR anchor (TZRSITE '@') gets its TZR row in the table's
+``"tzr"`` entry, built by ``AbsPhase.tzr_table`` with the same synthetic
+geometry as the data rows: on the orbit at TZRMJD when ``orbit=True``,
+else at the barycentre.  With the orbit, a model with a solar-wind
+component also gets the Sun at the barycentre (``obs_sun_pos_ls =
+-ssb_obs_pos_ls``), so its solar-wind delay is not zero; other models
+keep the Sun's position at zero, as before.
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ import numpy as np
 
 from pint_tpu_torch.constants import AU, C, SECS_PER_DAY
 from pint_tpu_torch.models.builder import get_model
+from pint_tpu_torch.timebase.hostdd import HostDD, carry_days
 
 #: the binary MSP's observing frequencies (MHz), cycled over the TOAs
 #: while the receiver flags cycle over (L-wide, S-wide): every frequency
@@ -59,7 +70,21 @@ def msp_par(ndmx: int = 150, seed: int = 0) -> str:
         "TNREDAMP -13.5", "TNREDGAM 3.7", "TNREDC 30",
     ]
     return "\n".join(lines) + "\n"
-from pint_tpu_torch.timebase.hostdd import HostDD, carry_days
+
+
+def msp_full_par(ndmx: int = 150, seed: int = 0) -> str:
+    """:func:`msp_par` with the remaining narrowband components of a
+    published NANOGrav / EPTA par file: NE_SW (free), a barycentric TZR
+    anchor, PHOFF, and 30-harmonic power-law DM and chromatic noise.
+    Free: msp_par's and NE_SW (168 at 150 ranges; 169 design columns with
+    the offset, so the joint Gram is q = 180 + 170 = 350).  PHOFF is held
+    at 0: under a TZR anchor the reference subtracts it from the TZR
+    row's phase too, so a free PHOFF would be a zero design column."""
+    return msp_par(ndmx, seed) + "\n".join([
+        "NE_SW 7.9 1", "TZRMJD 55000.1", "TZRSITE @", "TZRFRQ 1400",
+        "PHOFF 0.0", "TNDMAMP -13.6", "TNDMGAM 2.8", "TNDMC 30",
+        "TNCHROMAMP -14.0", "TNCHROMGAM 3.0", "TNCHROMC 30",
+    ]) + "\n"
 
 
 def _table(mjd_int, sec: HostDD, freq, error_us, flags) -> dict:
@@ -74,6 +99,30 @@ def _table(mjd_int, sec: HostDD, freq, error_us, flags) -> dict:
         "padd": np.zeros(n),
         "flags": flags,
     }
+
+
+def _with_geometry(table, model, orbit: bool, start_mjd: float):
+    """Put the synthetic observatory orbit (or the barycentre) on a table
+    and on its TZR row; with the orbit, the Sun at the barycentre for a
+    model that reads the solar wind."""
+    sun = orbit and any(c.category == "solar_wind"
+                        for c in model.components.values())
+
+    def place(t, mjd_int, sec):
+        if orbit:
+            t["ssb_obs_pos_ls"] = orbit_pos_m(mjd_int, sec, start_mjd) / C
+        if sun:
+            t["obs_sun_pos_ls"] = -t["ssb_obs_pos_ls"]
+        return t
+
+    place(table, table["tdb_day"],
+          HostDD(table["tdb_sec_hi"], table["tdb_sec_lo"]))
+    anchor = model.tzr_anchor
+    if anchor is not None:
+        day, sec = anchor.params["TZRMJD"].value
+        table["tzr"] = place(anchor.tzr_table(), np.array([float(day)]),
+                             HostDD([sec.hi], [sec.lo]))
+    return table
 
 
 def orbit_pos_m(mjd_int, sec: HostDD, start_mjd: float):
@@ -116,9 +165,8 @@ def make_test_pulsar(par: str, ntoa: int = 64, start_mjd: float = 54000.0,
     empty_flags = [dict() for _ in range(ntoa)]
 
     for _ in range(iterations):
-        table = _table(mjd_int, sec, freq, err, empty_flags)
-        if orbit and orbit_in_phase:
-            table["ssb_obs_pos_ls"] = orbit_pos_m(mjd_int, sec, start_mjd) / C
+        table = _with_geometry(_table(mjd_int, sec, freq, err, empty_flags),
+                               model, orbit and orbit_in_phase, start_mjd)
         cm = model.compile(table, device=device, subtract_mean=False)
         cm.track_mode = "nearest"
         resid = cm.time_residuals(cm.x0(), subtract_mean=False)
@@ -129,6 +177,4 @@ def make_test_pulsar(par: str, ntoa: int = 64, start_mjd: float = 54000.0,
             mjd_int, sec + rng.normal(0.0, jitter_us * 1e-6, ntoa)
         )
     toas = _table(mjd_int, sec, freq, err, toa_flags)
-    if orbit:
-        toas["ssb_obs_pos_ls"] = orbit_pos_m(mjd_int, sec, start_mjd) / C
-    return model, toas
+    return model, _with_geometry(toas, model, orbit, start_mjd)

@@ -68,6 +68,12 @@ class HostDD:
     def from_string(s: str) -> "HostDD":
         return HostDD(*parse_decimal(s))
 
+    @staticmethod
+    def from_prod(a, b) -> "HostDD":
+        """a * b exactly (a, b f64)."""
+        return HostDD(*_two_prod(np.asarray(a, dtype=np.float64),
+                                 np.asarray(b, dtype=np.float64)))
+
     def normalize(self) -> "HostDD":
         return HostDD(*_quick_two_sum(self.hi, self.lo))
 

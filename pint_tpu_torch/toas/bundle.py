@@ -14,6 +14,8 @@ Counterpart of ``pint_tpu/toas/bundle.py``.  Host data arrives as a TOA
   flags                   optional list of per-TOA flag dicts
   masks                   optional dict of precomputed (n,) or (n, k)
                           columns (mask selections, noise bases)
+  tzr                     optional one-row table of the same layout: the
+                          TZR arrival of a model with an AbsPhase anchor
 
 and :func:`make_bundle` moves it to the device once.  Absolute epochs stay
 an exact day plus DD seconds, so kernels form dt against model epochs in
@@ -22,11 +24,12 @@ DD; geometry is in light-seconds, so delays are plain f64 dot products.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from pint_tpu_torch.constants import SECS_PER_DAY
 from pint_tpu_torch.ops.dd import DD, F64
 
 
@@ -42,6 +45,8 @@ class TOABundle(NamedTuple):
     pulse_number: torch.Tensor
     padd: torch.Tensor
     masks: dict
+    # the one-row bundle of the model's TZR arrival (AbsPhase), or None
+    tzr: Optional["TOABundle"] = None
 
     @property
     def ntoa(self) -> int:
@@ -91,6 +96,14 @@ def make_bundle(toas, masks, device) -> TOABundle:
             for k, v in masks.items()
         },
     )
+
+
+def table_mjd(toas) -> np.ndarray:
+    """MJD(TDB) of each row of a host TOA table, as f64 days (the range
+    and epoch selections of the mask columns)."""
+    return np.asarray(toas["tdb_day"], np.float64) + (
+        np.asarray(toas["tdb_sec_hi"], np.float64)
+        + np.asarray(toas["tdb_sec_lo"], np.float64)) / SECS_PER_DAY
 
 
 def take_rows(toas: dict, idx) -> dict:

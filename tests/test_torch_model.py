@@ -9,6 +9,7 @@ byte-identical inputs.  Tolerances are stated per test.
 
 import sys
 import textwrap
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -26,7 +27,10 @@ from torch_reference import (  # noqa: E402
 )
 
 from pint_tpu_torch.convert import state_from_numpy  # noqa: E402
-from pint_tpu_torch.models.builder import get_model  # noqa: E402
+from pint_tpu_torch.models.builder import (  # noqa: E402
+    UnknownParameterWarning,
+    get_model,
+)
 from pint_tpu_torch.models.noise import host_fourier_basis  # noqa: E402
 from pint_tpu_torch.models.timing_model import (  # noqa: E402
     reference_values,
@@ -185,11 +189,21 @@ def test_state_round_trips_reference_values(ref):
                 assert g == v, n
 
 
-@pytest.mark.parametrize("line", ["NE_SW 7.9 1", "GLEP_1 55000",
-                                  "WAVE_OM 0.005", "UNITS TCB"])
-def test_get_model_rejects_unported_lines(line):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        get_model(BENCH_PAR + line + "\n")
+@pytest.mark.parametrize("line, exc, match", [
+    ("DMJUMP -f L-wide 0.0003 1", NotImplementedError, "ROADMAP A7"),
+    ("DMEFAC -f L-wide 1.2", NotImplementedError, "ROADMAP A7"),
+    ("DMEQUAD -f L-wide 0.0001", NotImplementedError, "ROADMAP A7"),
+    ("NOTAPARAM 1.0", UnknownParameterWarning,
+     r"unrecognized par-file parameters \['NOTAPARAM'\]"),
+])
+def test_get_model_rejects_unported_lines(line, exc, match):
+    """The wideband-only lines raise naming ROADMAP A7; a line no
+    component accepts gives the reference builder's
+    UnknownParameterWarning (raised here under an error filter)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", UnknownParameterWarning)
+        with pytest.raises(exc, match=match):
+            get_model(BENCH_PAR + line + "\n")
 
 
 def test_entry_points_need_a_card_unless_told(monkeypatch):

@@ -10,7 +10,8 @@ every array it produced into an ``.npz`` that the test then reads.
 
 Reference scripts fill a dict ``OUT`` (name -> array or JSON-able value)
 and may call ``export_state(cm, prefix)`` to carry a CompiledModel's
-inputs across in the format of ``pint_tpu_torch.convert``.
+inputs across in the format of ``pint_tpu_torch.convert``, its TZR
+bundle (``cm.tzr_bundle``) included under ``<prefix>/tzr/``.
 """
 
 from __future__ import annotations
@@ -96,9 +97,7 @@ OUT = {{}}
 META = {{}}
 
 
-def export_state(cm, prefix):
-    from pint_tpu.timebase.hostdd import HostDD
-    b = cm.bundle
+def _export_bundle(b, prefix):
     cols = dict(
         tdb_day=b.tdb_day, tdb_sec_hi=b.tdb_sec.hi, tdb_sec_lo=b.tdb_sec.lo,
         freq_mhz=b.freq_mhz, error_us=b.error_us,
@@ -112,6 +111,13 @@ def export_state(cm, prefix):
         OUT[f"{{prefix}}/masks/{{k}}"] = np.asarray(v)
     for k, v in b.obs_planet_pos_ls.items():
         OUT[f"{{prefix}}/planet/{{k}}"] = np.asarray(v)
+
+
+def export_state(cm, prefix):
+    from pint_tpu.timebase.hostdd import HostDD
+    _export_bundle(cm.bundle, prefix)
+    if getattr(cm, "tzr_bundle", None) is not None:
+        _export_bundle(cm.tzr_bundle, f"{{prefix}}/tzr")
     static = {{}}
     for n, v in cm.ref.items():
         if isinstance(v, HostDD):
@@ -119,6 +125,8 @@ def export_state(cm, prefix):
         elif isinstance(v, tuple) and isinstance(v[1], HostDD):
             OUT[f"{{prefix}}/ref/{{n}}"] = np.array(
                 [v[0], v[1].hi, v[1].lo], float)
+        elif isinstance(v, tuple):  # a pair parameter (WAVEn, IFUNCn)
+            OUT[f"{{prefix}}/ref/{{n}}"] = np.array(v, float)
         elif isinstance(v, (bool, str)):
             static[n] = v
         else:
@@ -165,29 +173,40 @@ def run_reference(script: str, out_path, env=None, timeout=300) -> dict:
     return out
 
 
-def load_state(ref_out: dict, prefix: str) -> dict:
-    """The ``pint_tpu_torch.convert.state_from_numpy`` dict of an
-    ``export_state(cm, prefix)`` call."""
-    meta = ref_out["__meta__"][prefix]
-    bundle, masks, planets, ref = {}, {}, {}, dict(meta["static"])
+def _load_table(ref_out: dict, prefix: str) -> dict:
+    """The host TOA table exported under ``prefix`` (its TZR row, if
+    any, under ``"tzr"``)."""
+    table, masks, planets = {}, {}, {}
     for key, v in ref_out.items():
         if not key.startswith(prefix + "/"):
             continue
-        _, kind, name = key.split("/", 2)
+        kind, _, name = key[len(prefix) + 1:].partition("/")
         if kind == "bundle":
-            bundle[name] = v
+            table[name] = v
         elif kind == "masks":
             masks[name] = v
         elif kind == "planet":
             planets[name] = v
-        elif kind == "ref":
+    table["masks"] = masks
+    table["obs_planet_pos_ls"] = planets
+    if any(k.startswith(prefix + "/tzr/") for k in ref_out):
+        table["tzr"] = _load_table(ref_out, prefix + "/tzr")
+    return table
+
+
+def load_state(ref_out: dict, prefix: str) -> dict:
+    """The ``pint_tpu_torch.convert.state_from_numpy`` dict of an
+    ``export_state(cm, prefix)`` call."""
+    meta = ref_out["__meta__"][prefix]
+    ref = dict(meta["static"])
+    for key, v in ref_out.items():
+        if key.startswith(prefix + "/ref/"):
+            name = key[len(prefix) + 5:]
             ref[name] = float(v[0]) if v.shape == (1,) else tuple(
                 float(e) for e in v
             )
-    bundle["masks"] = masks
-    bundle["obs_planet_pos_ls"] = planets
     return {
-        "bundle": bundle,
+        "bundle": _load_table(ref_out, prefix),
         "ref": ref,
         "free_names": meta["free_names"],
         "components": meta["components"],
