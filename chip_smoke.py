@@ -110,11 +110,38 @@ Phases, each of which raises on failure (exit code != 0):
    and bench.py's pulsar with the troposphere, its geometry columns
    drawn from the seed.
 
+9. wideband: the wideband MSP (``simulation.msp_wideband_par``: the
+   binary MSP plus a free DMJUMP, DMEFAC and DMEQUAD; 169 design columns
+   with the offset) at 1e5 TOAs with DM measurements (-pp_dme 2e-4),
+   so the stacked system has 2e5 rows and the joint Gram q = 230:
+   ``auto_fitter`` gives a ``WidebandDownhillFitter`` on its native rung
+   and ``WidebandTOAFitter`` fits on ``cuda-mixed``, each launching the
+   wide path at n = 2e5 (printed with their host times and peak
+   allocations); the mixed step from the par values at the step gates
+   of the f64 step; ``fused_gram_joint`` at (2e5, 60, 170), half its T
+   rows zero, against its plain version, bitwise on rerun, and timed;
+   the card against the CPU on a 2048-TOA copy (residuals 1e-11 s, DM
+   residuals 1e-12 pc cm^-3, the f64 step 1e-8);
+10. the PTA batch: 45 pulsars of ``simulation.pta_pars`` (msp_par's
+   composition at 100 DMX ranges, each with its own F0, F1, sky
+   position, DM, DMX values, PEPOCH and orbit; q = 179) with 4000-10000
+   TOAs padded to 1e4: ``PTABatch.fit(maxiter=3)`` in 'mixed' mode
+   launches the Gram kernel exactly once a batched step for all 45
+   (printed with the steps, host time, a batched step's device time and
+   the peak allocation); one batched mixed step at the step gates of the
+   batched f64 step, pulsar by pulsar; on three pulsars each one's
+   batched f64 step within 1e-8 of its own GLSFitter step; the batched
+   kernel at the composition's shape and at the bench shape (q = 67)
+   against its plain version, bitwise on rerun, each pulsar within 3e-6
+   of scale of its own single launch, and timed beside its bound and
+   one batched f64 GEMM (``torch.bmm``) of the same Y.
+
 The last three lines are the kernels JSON (each kernel at the binary
 MSP's shapes, with its launches in the MSP's fits, and under ``bench``
 the same numbers at bench.py's pulsar; ``fused_gram_joint`` also with
-the launches of the downhill fits of phase 7 and, under ``full_width``,
-its q = 350 entry with the launches of phase 8's fits), nvidia-smi's
+the launches of the downhill fits of phase 7, under ``full_width``
+its q = 350 entry with the launches of phase 8's fits, and under
+``wideband`` and ``pta`` those of phases 9 and 10), nvidia-smi's
 name and power limit, and ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the package beside it, the script exits non-zero
 before printing any result.
@@ -139,6 +166,8 @@ import torch  # noqa: E402
 from pint_tpu_torch.fitting import (  # noqa: E402
     DownhillGLSFitter,
     DownhillWLSFitter,
+    WidebandDownhillFitter,
+    WidebandTOAFitter,
     WLSFitter,
     auto_fitter,
 )
@@ -162,11 +191,15 @@ from pint_tpu_torch.exceptions import PintTpuError  # noqa: E402
 from pint_tpu_torch.models.builder import get_model  # noqa: E402
 from pint_tpu_torch.ops import fourier, fused_gram  # noqa: E402
 from pint_tpu_torch.ops._cuda_build import build_libraries  # noqa: E402
+from pint_tpu_torch.parallel.pta import PTABatch  # noqa: E402
 from pint_tpu_torch.simulation import (  # noqa: E402
     MSP_FREQS,
     make_test_pulsar,
     msp_full_par,
     msp_par,
+    msp_wideband_par,
+    pta_ntoas,
+    pta_pars,
 )
 from pint_tpu_torch.timebase.hostdd import HostDD  # noqa: E402
 
@@ -263,13 +296,15 @@ def cuda_ms(fn, reps=30, warm=3, batch=20):
 def device_ms(fn, calls=20, tries=3):
     """Device time per call from torch.profiler: the summed durations of
     the kernels ``fn`` launches, without host gaps.  Also per kernel.  On
-    the card the profiler drops one event of a window now and then (a
-    count of 19 where 20 calls launched 20), so each kernel's time per
-    call is its mean recorded duration times its launches per call, the
-    nearest whole number of launches a call; a profile that recorded no
-    kernel, or a count more than one event away from whole launches a
-    call, is taken again, and after ``tries`` such profiles the time is
-    None."""
+    the card the profiler drops events of a window: a count of 19 where
+    20 calls launched 20, and for calls of a millisecond or more a fixed
+    share of them (17 of 20 batched Gram launches, 14 of 20 batched f64
+    GEMMs, in every try).  So each kernel's time per call is its mean
+    recorded duration times its launches per call, its count over the
+    calls rounded up (the profiler drops events, it adds none); a profile
+    that recorded no kernel, or fewer than half the events of whole
+    launches a call, is taken again, and after ``tries`` such profiles
+    the time is None."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -284,9 +319,8 @@ def device_ms(fn, calls=20, tries=3):
             if ev.device_type == torch.autograd.DeviceType.CUDA:
                 total[ev.name] = total.get(ev.name, 0.0) + ev.device_time
                 count[ev.name] = count.get(ev.name, 0) + 1
-        each = {k: max(1, round(c / calls)) for k, c in count.items()}
-        if total and all(abs(c - each[k] * calls) <= 1
-                         for k, c in count.items()):
+        each = {k: max(1, -(-c // calls)) for k, c in count.items()}
+        if total and all(2 * c >= each[k] * calls for k, c in count.items()):
             per = {k: total[k] / count[k] * each[k] / 1e3 for k in total}
             return sum(per.values()), per
         log(f"  device_ms: profile taken again, kernel counts "
@@ -408,12 +442,15 @@ def zero_counts():
     for wrapper, _, _, _ in KERNELS.values():
         wrapper.launches = 0
     fused_gram.fused_gram_joint_cuda.wide_launches = 0
+    fused_gram.fused_gram_joint_cuda.batched_launches = 0
 
 
 def read_counts():
     launches = {n: k[0].launches for n, k in KERNELS.items()}
     launches["fused_gram_joint wide"] = (
         fused_gram.fused_gram_joint_cuda.wide_launches)
+    launches["fused_gram_joint batched"] = (
+        fused_gram.fused_gram_joint_cuda.batched_launches)
     return launches
 
 
@@ -505,14 +542,17 @@ def pass_times(entry, prefix):
 
 def gram_bound(T, A, w):
     """fused_gram_joint's bound from its inputs: each read once, the
-    three Grams written once; n q (q + 1) f64 flop of the upper
-    triangle at the f64 tensor-core peak."""
-    n, k = T.shape
-    p1 = A.shape[1]
+    three Grams written once (each pulsar's, for a batch); n q (q + 1)
+    f64 flop of the upper triangle a pulsar at the f64 tensor-core
+    peak."""
+    *lead, n, k = T.shape
+    npsr = math.prod(lead)
+    p1 = A.shape[-1]
     q = k + p1
     nbytes = (T.numel() * T.element_size() + A.numel() * A.element_size()
-              + w.numel() * w.element_size() + 8 * (k * k + k * p1 + p1 * p1))
-    return bound(nbytes, n * q * (q + 1), F64_TC_FLOPS)
+              + w.numel() * w.element_size()
+              + 8 * npsr * (k * k + k * p1 + p1 * p1))
+    return bound(nbytes, npsr * n * q * (q + 1), F64_TC_FLOPS)
 
 
 def fourier_gram_bound(n, nh, p):
@@ -1134,6 +1174,250 @@ def full_width_phase(dev, rng):
     return entry
 
 
+#: the wideband MSP (``msp_wideband_par``) and its DM measurements' error
+#: (golden4's and golden17's -pp_dme, pc cm^-3)
+WB_DM_ERROR = 2e-4
+#: the PTA batch: 45 pulsars of msp_par's composition at 100 DMX ranges,
+#: 4000-10000 TOAs each (BASELINE.json config 5, the NANOGrav 12.5-yr
+#: batch), and the three pulsars held to their own GLSFitter steps
+PTA_NPSR, PTA_NDMX, PTA_NMIN, PTA_NMAX = 45, 100, 4000, 10_000
+PTA_OWN = 3
+
+
+def gram_time(label, T, A, w, batched=False):
+    """A Gram kernel call timed as the kernels line reports it: CUDA
+    events and profiler device time of the kernel, its plain version and
+    its library yardstick (one f64 GEMM, a torch.bmm for a batch, of the
+    same weighted f32 Y), beside its bound from these inputs."""
+    Ys = (torch.cat([T.float(), A.float()], dim=-1)
+          * torch.sqrt(w).float()[..., None]).contiguous()
+    Yd = Ys.double()
+    lib = ((lambda: torch.bmm(Yd.transpose(1, 2), Yd)) if batched
+           else (lambda: torch.matmul(Yd.T, Yd)))
+    times = time_kernel(lambda: fused_gram.fused_gram_joint_cuda(T, A, w),
+                        lambda: fused_gram.fused_gram_joint_plain(T, A, w),
+                        lib)
+    pass_times(times, "wide_" if T.shape[-1] + A.shape[-1] > 80
+               else "fused_gram_")
+    del times["device_parts"], Ys, Yd
+    times["bound_ms"], times["bound_by"] = gram_bound(T, A, w)
+    shape = [*T.shape[:-1], T.shape[-1], A.shape[-1]]
+    log(f"{label} fused_gram_joint at {shape} (ms, median): {times}")
+    return times
+
+
+def wideband_phase(dev):
+    """Phase 9: the wideband MSP (``msp_wideband_par``: the binary MSP
+    plus a free DMJUMP, DMEFAC and DMEQUAD) at 1e5 TOAs with DM
+    measurements, 2e5 stacked rows.  -> what the kernels line reports."""
+    par = msp_wideband_par(MSP_NDMX, seed=0)
+    t0 = time.perf_counter()
+    model, toas = make_test_pulsar(par, ntoa=NTOA, device=dev,
+                                   dm_error=WB_DM_ERROR, **MSP_SIM)
+    log(f"wideband: simulated {NTOA} TOAs in {time.perf_counter() - t0:.2f} s")
+    down, downhill = downhill_fit(
+        "wideband", lambda: auto_fitter(toas, model), WidebandDownhillFitter,
+        wide=True)
+    shape = fused_gram.fused_gram_joint_cuda.last_shape
+    check(shape == (1, 2 * NTOA, 60, 170),
+          f"wideband downhill: the last Gram launch had shape {shape}")
+    toa_fit, toa_l = drive(
+        "mixed", lambda: WidebandTOAFitter(toas, get_model(par), device=dev),
+        "wideband")
+    check(toa_l["fused_gram_joint wide"] == toa_l["fused_gram_joint"]
+          and fused_gram.fused_gram_joint_cuda.last_shape == shape,
+          f"the wideband joint Gram left the wide path at n = 2e5: {toa_l}")
+
+    f = WidebandTOAFitter(toas, get_model(par), device=dev)
+    x = f.cm.x0()
+    r, M, Nd = f._step_inputs(x)
+    T, phi = f._step_noise(x)
+    log(f"wideband shapes: rows {M.shape[0]} design columns {M.shape[1]} "
+        f"basis {T.shape[1]}")
+    gates = step_gates("wideband mixed",
+                       gls_step_woodbury_mixed(r, M, Nd, T, phi,
+                                               normalized_cov=True),
+                       gls_step_woodbury(r, M, Nd, T, phi,
+                                         normalized_cov=True), ntoa=NTOA)
+    X = torch.cat([M / _column_norms(M)[None, :], r[:, None]], dim=1)
+    Tc, Xc, wc = T.contiguous(), X.contiguous(), (1.0 / Nd).contiguous()
+    check(torch.all(Tc[NTOA:] == 0), "the DM block's basis rows are not zero")
+    err = kernel_vs_plain("fused_gram_joint", fused_gram.fused_gram_joint_cuda,
+                          fused_gram.fused_gram_joint_plain, Tc, Xc, wc)
+    log(f"wideband fused_gram_joint vs plain at (n, k, p1) = "
+        f"{[Tc.shape[0], Tc.shape[1], Xc.shape[1]]}: {err}")
+    times = gram_time("wideband", Tc, Xc, wc)
+    del f, r, M, Nd, T, X, Tc, Xc, wc
+    steps = {mode: host_ms(lambda m=mode: toa_fit._gn_step(
+        toa_fit.cm.x0(), m), reps=5, warm=1) for mode in ("mixed", "f64")}
+    log(f"wideband step (ms, median, host clock to sync): {steps}")
+
+    # a 2048-TOA copy: the card against the CPU
+    m2, t2 = make_test_pulsar(msp_wideband_par(MSP_SMALL["ndmx"], seed=0),
+                              ntoa=MSP_SMALL["ntoa"], device="cpu",
+                              dm_error=WB_DM_ERROR, **MSP_SIM)
+    res = {}
+    for d in ("cpu", "cuda"):
+        fw = WidebandTOAFitter(t2, m2, device=d, fused=False)
+        xs = fw.cm.x0()
+        inputs = fw._step_inputs(xs)
+        res[d] = (fw.cm.time_residuals(xs).cpu(),
+                  fw.cm.dm_residuals(xs).cpu(),
+                  gls_step_woodbury(*inputs, *fw._step_noise(xs))[0])
+    small = dict(
+        resid_s=float(torch.max(torch.abs(res["cuda"][0] - res["cpu"][0]))),
+        dm_resid=float(torch.max(torch.abs(res["cuda"][1] - res["cpu"][1]))),
+        f64_step_rel=rel(res["cuda"][2], res["cpu"][2]))
+    log(f"wideband: card vs cpu at {MSP_SMALL['ntoa']} TOAs: {small}")
+    check(small["resid_s"] <= 1e-11 and small["dm_resid"] <= 1e-12
+          and small["f64_step_rel"] <= 1e-8,
+          f"wideband card vs cpu outside 1e-11 s, 1e-12, 1e-8: {small}")
+    launches = downhill["launches"]["fused_gram_joint"] + toa_l[
+        "fused_gram_joint"]
+    return dict(
+        shape=[2 * NTOA, 60, 170], launches=launches,
+        launches_by_fit={"downhill": downhill["launches"]["fused_gram_joint"],
+                         "toa_fitter": toa_l["fused_gram_joint"]},
+        max_abs_err=err[0], max_err_vs_plain=err[1], **times,
+        downhill_fit={key: downhill[key] for key in (
+            "niter", "converged", "chi2_start", "chi2", "wall_s",
+            "max_memory_allocated")},
+        toa_fit=dict(steps=toa_fit.steps_taken, chi2=toa_fit.chi2,
+                     rung=toa_fit.guard_report.rung),
+        vs_f64=gates, step_ms=steps, card_vs_cpu=small)
+
+
+def pta_phase(dev, rng):
+    """Phase 10: the PTA batch, 45 pulsars of ``pta_pars`` (each its own
+    F0, F1, sky position, DM, DMX values, PEPOCH and orbit) with
+    ``pta_ntoas`` TOAs each, padded to 1e4.  -> what the kernels line
+    reports."""
+    t0 = time.perf_counter()
+    ntoas = pta_ntoas(PTA_NPSR, seed=0, nmin=PTA_NMIN, nmax=PTA_NMAX)
+    pulsars = [make_test_pulsar(par, ntoa=int(n), device=dev,
+                                **{**MSP_SIM, "seed": i})
+               for i, (par, n) in enumerate(zip(
+                   pta_pars(PTA_NPSR, PTA_NDMX, seed=0), ntoas))]
+    cms = [m.compile(t, device=dev) for m, t in pulsars]
+    log(f"pta: simulated {PTA_NPSR} pulsars, {int(ntoas.sum())} TOAs "
+        f"({int(ntoas.min())}-{int(ntoas.max())} each) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    batch = PTABatch(cms)
+    check(batch.ntoa == PTA_NMAX and len(batch.free_names) == 117,
+          f"pta batch: {batch.ntoa} TOAs, {len(batch.free_names)} free")
+
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    xs, chi2 = batch.fit(maxiter=3, mode="mixed")
+    torch.cuda.synchronize()
+    fit = dict(steps=batch.steps_taken, wall_s=time.perf_counter() - t0,
+               launches=read_counts(),
+               last_shape=fused_gram.fused_gram_joint_cuda.last_shape,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               chi2_min=float(chi2.min()), chi2_max=float(chi2.max()))
+    log(f"pta mixed fit(maxiter=3): {fit}")
+    n_gram = fit["launches"]["fused_gram_joint"]
+    check(n_gram == fit["launches"]["fused_gram_joint batched"]
+          == fit["steps"] == 4
+          and fit["launches"]["fused_gram_joint wide"] == n_gram
+          and fit["launches"]["fourier_gram"] == 0,
+          f"pta: {fit['launches']} launches in {fit['steps']} batched steps")
+    check(fit["last_shape"] == (PTA_NPSR, PTA_NMAX, 60, 119),
+          f"pta: the batched launch had shape {fit['last_shape']}")
+    check(bool(torch.all(torch.isfinite(chi2))) and bool(
+        torch.all(torch.isfinite(xs))), "pta: non-finite fit")
+    check(np.all(np.isfinite(batch.cov)) and np.all(
+        np.diagonal(batch.cov, axis1=1, axis2=2) > 0),
+        "pta: non-finite or non-positive covariance")
+
+    # one batched step, mixed against f64, pulsar by pulsar
+    x0 = batch.x0()
+    step_ms = {mode: host_ms(lambda m=mode: batch.fit_step(x0, mode=m),
+                             reps=3, warm=1) for mode in ("mixed", "f64")}
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        batch.fit_step(x0, mode="mixed")
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a lower bound: the profiler drops some events of a window
+    step_dev_ms = sum(e.device_time for e in kernels) / 1e3
+    log(f"pta batched step (ms, median, host clock to sync): {step_ms}; "
+        f"mixed step device time >= {step_dev_ms!r} ms over "
+        f"{len(kernels)} recorded kernels")
+    xm, cm_, (cvm, nm) = batch.fit_step(x0, mode="mixed")
+    xf, cf_, (cvf, nf) = batch.fit_step(x0, mode="f64")
+    worst = {}
+    for i in range(PTA_NPSR):
+        g = step_gates(f"pta pulsar {i} mixed",
+                       (xm[i], (cvm[i], nm[i]), cm_[i], None),
+                       (xf[i], (cvf[i], nf[i]), cf_[i], None),
+                       ntoa=int(ntoas[i]))
+        for key, v in g.items():
+            worst[key] = max(worst.get(key, 0.0), v)
+    log(f"pta mixed vs f64 step, worst over the pulsars: {worst}")
+
+    # three pulsars: each one's batched f64 step against its own
+    # GLSFitter step on the card
+    three = PTABatch(cms[:PTA_OWN])
+    x3, c3, _ = three.fit_step(three.x0(), mode="f64")
+    own = []
+    for i, (m, t) in enumerate(pulsars[:PTA_OWN]):
+        g = GLSFitter(t, m, device=dev, fused=False)
+        xn, _, c, _ = g._gn_step(g.cm.x0(), "f64")
+        own.append(dict(dx_rel=rel(x3[i], xn),
+                        chi2_rel=abs(float(c3[i]) - float(c)) / abs(float(c))))
+    log(f"pta: batched f64 step vs each pulsar's own GLSFitter step: {own}")
+    check(all(o["dx_rel"] <= 1e-8 and o["chi2_rel"] <= 1e-8 for o in own),
+          f"pta batched step off the pulsars' own steps: {own}")
+    del three, x3, c3
+
+    # the batched kernel at the composition's shape (the step's own
+    # operands) and at the bench shape (q = 67, the narrow path)
+    def operands(cm, x):
+        r, M, Nd, T, _ = step_inputs(cm, x)
+        X = torch.cat([M / _column_norms(M)[None, :], r[:, None]], dim=1)
+        return T, X, 1.0 / Nd
+
+    T, A, w = (v.contiguous() for v in batch._vmapped(operands)(x0))
+    Tb = torch.as_tensor(rng.standard_normal((PTA_NPSR, PTA_NMAX, 60)),
+                         device=dev)
+    Ab = torch.as_tensor(rng.standard_normal((PTA_NPSR, PTA_NMAX, 7)),
+                         device=dev)
+    wb = torch.as_tensor(rng.uniform(0.0, 2.0, (PTA_NPSR, PTA_NMAX)),
+                         device=dev)
+    kernel = {}
+    for label, (T_, A_, w_) in (("composition", (T, A, w)),
+                                ("bench", (Tb, Ab, wb))):
+        err = kernel_vs_plain("fused_gram_joint batched",
+                              fused_gram.fused_gram_joint_cuda,
+                              fused_gram.fused_gram_joint_plain, T_, A_, w_)
+        got = fused_gram.fused_gram_joint_cuda(T_, A_, w_)
+        single = 0.0
+        for i in range(PTA_NPSR):
+            one = fused_gram.fused_gram_joint_cuda(T_[i], A_[i], w_[i])
+            for o, g in zip(one, got):
+                d = float(torch.max(torch.abs(o - g[i])))
+                scale = float(torch.max(torch.abs(o)))
+                check(d <= 3e-6 * scale, f"pta {label}: pulsar {i}'s batched "
+                      f"Gram off its single launch by {d} of {scale}")
+                single = max(single, d / scale)
+        times = gram_time(f"pta {label}", T_, A_, w_, batched=True)
+        kernel[label] = dict(shape=[PTA_NPSR, PTA_NMAX, T_.shape[-1],
+                                    A_.shape[-1]],
+                             max_abs_err=err[0], max_err_vs_plain=err[1],
+                             max_err_vs_single=single, **times)
+        log(f"pta {label}: batched vs plain {err}, vs single launches "
+            f"{single!r}")
+    return dict(launches=n_gram,
+                npulsars=PTA_NPSR, ntoas=[int(v) for v in ntoas], fit=fit,
+                step_ms=step_ms, step_device_ms=step_dev_ms,
+                mixed_vs_f64_worst=worst, own_steps=own,
+                **kernel["composition"], bench_shape=kernel["bench"])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1315,6 +1599,12 @@ def main():
     # 8. the full-width pulsar (q = 350) and the remaining components
     full = full_width_phase(dev, rng)
 
+    # 9. wideband: the stacked [TOA; DM] fits at 2e5 rows
+    wideband = wideband_phase(dev)
+
+    # 10. the PTA batch: 45 pulsars, one Gram launch a batched step
+    pta = pta_phase(dev, rng)
+
     # the kernels line: each kernel at the binary MSP's shapes (launches
     # from its fits), and under "bench" the same numbers at bench.py's
     # pulsar (launches from its fits)
@@ -1367,6 +1657,8 @@ def main():
         k: entry[k]["launches"]["fused_gram_joint"] for k in ("bench", "msp")}
     rows[0]["default_entry_point"] = entry
     rows[0]["full_width"] = full
+    rows[0]["wideband"] = wideband
+    rows[0]["pta"] = pta
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -34,9 +34,6 @@ from pint_tpu_torch.models.parameter import pairParameter
 from pint_tpu_torch.models.timing_model import TimingModel, reference_values
 from pint_tpu_torch.timebase.hostdd import HostDD
 
-#: what the port leaves to later work, by the component or parameter
-_LATER = "ROADMAP A7 (DMJUMP and ScaleDmError, with the wideband fit)"
-
 
 def _internal(v):
     if isinstance(v, (tuple, list)) and len(v) == 2:
@@ -57,9 +54,8 @@ def state_from_numpy(state: dict, device=None):
     for spec in state["components"]:
         name = spec["name"]
         if name not in COMPONENTS:
-            raise NotImplementedError(
-                f"component {name} is outside the ported slice; {_LATER}"
-            )
+            raise ValueError(f"component {name} is not a component of "
+                             "the port")
         c = COMPONENTS[name]()
         for mname in spec.get("masks", ()):
             fams = c.mask_families()
@@ -74,9 +70,8 @@ def state_from_numpy(state: dict, device=None):
     free = list(state["free_names"])
     for n, v in state["ref"].items():
         if n not in params:
-            raise NotImplementedError(
-                f"parameter {n} is outside the ported slice; {_LATER}"
-            )
+            raise ValueError(f"parameter {n} belongs to no component of "
+                             "the state")
         if isinstance(params[n], pairParameter):
             params[n]._internal = (float(v[0]), float(v[1]))
         else:

@@ -20,6 +20,14 @@
 // the bits depend on n alone through the block count NB = min(ceil(n /
 // 64), 132).  G_TT and G_AA are read from one triangle, so exactly symmetric.
 //
+// A pulsar axis: one launch computes the Grams of P matrices T (P, n, k),
+// A (P, n, p1), w (P, n), as the reference's pallas_call does under
+// jax.vmap (its batch grid axis).  blockIdx.y is the pulsar: each pulsar's
+// rows go to NB = min(ceil(n / 64), ceil(132 / P)) blocks, so the P NB
+// blocks of both passes spread over the SMs in about one wave; each pulsar
+// has its own slab of partials and pass 2 reduces it alone, in the order
+// above.  For P = 1 this is the single launch, bit for bit.
+//
 // Bound on an H100 SXM at the bench shape (n = 1e5, k = 60, p1 = 7, T in
 // f64): the function must read 8 n (k + p1 + 1) = 54.4 MB, 16.2 us at
 // 3.35 TB/s; its products, in 16 x 8 tiles over the upper triangle (25
@@ -388,13 +396,17 @@ struct FusedBlock {
 // Warps 0-7 run the MMAs, warps 8-15 convert, and lane 0 of warp 8 issues
 // the copies: the first STAGES chunks up front, then chunk it + STAGES as
 // soon as every converter has released chunk it's stage.
+// blockIdx.y is the pulsar: its T, A and w, and its slab of partials.
 template <typename TT>
 __global__ void __launch_bounds__(THREADS, 1)
     fused_gram_pass1(const TT* __restrict__ T, const double* __restrict__ A,
                      const double* __restrict__ w, long n, int k, int p1,
                      int nchunks, double* __restrict__ partial) {
   extern __shared__ __align__(128) unsigned char smem[];
-  FusedBlock<TT> b(smem, T, A, w, n, k, p1, nchunks);
+  const long psr = blockIdx.y;
+  partial += psr * gridDim.x * (long)tile_count(k + p1) * TELEMS;
+  FusedBlock<TT> b(smem, T + psr * n * k, A + psr * n * p1, w + psr * n, n,
+                   k, p1, nchunks);
   __syncthreads();  // the barriers are initialized
   if (b.warp >= GROUP) {
     const bool producer = b.warp == GROUP && b.lane == 0;
@@ -422,7 +434,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 // block: warp w sums blocks w, w + 16, ... (contiguous 256-byte loads
 // across the warp), then the block adds the 16 warp sums in order and
 // scatters the upper-triangle element (a, c) to G_TT (both triangles),
-// G_TA or G_AA (both triangles).
+// G_TA or G_AA (both triangles).  blockIdx.y is the pulsar.
 __global__ void __launch_bounds__(P2_WARPS * 32)
     fused_gram_pass2(const double* __restrict__ partial, int nb, int k,
                      int p1, double* __restrict__ gtt,
@@ -431,6 +443,11 @@ __global__ void __launch_bounds__(P2_WARPS * 32)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q = k + p1;
   const int npe = tile_count(q) * TELEMS;
+  const long psr = blockIdx.y;
+  partial += psr * nb * (long)npe;
+  gtt += psr * k * k;
+  gta += psr * k * p1;
+  gaa += psr * p1 * p1;
   const int pe = blockIdx.x * 32 + lane;
   double s = 0.0;
   if (pe < npe) {
@@ -457,14 +474,21 @@ __global__ void __launch_bounds__(P2_WARPS * 32)
 }
 
 // The shapes and pointers the design takes (ops/fused_gram.py's
-// fused_block_table and the wrapper's checks, re-checked here).
+// fused_block_table and the wrapper's checks, re-checked here): a pulsar's
+// rows go to min(ceil(n / 64), ceil(132 / npsr)) blocks, and every
+// pulsar's T, A and w start 16-byte aligned.
 static bool check_shape(const void* T, const void* A, const void* w, int n,
-                        int k, int p1, int q_pad, int nb, int threads) {
+                        int k, int p1, int q_pad, int nb, int threads,
+                        int npsr, int es) {
   const int q = k + p1;
   const int nchunks = (n + ROWS - 1) / ROWS;
+  const int per = (NB_MAX + npsr - 1) / (npsr > 0 ? npsr : 1);
+  const bool strides = npsr == 1 || ((long)n * k * es % 16 == 0 &&
+                                     (long)n * p1 * 8 % 16 == 0 &&
+                                     (long)n * 8 % 16 == 0);
   return threads == THREADS && n >= 1 && k >= 1 && p1 >= 1 && q <= Q_MAX &&
-         q_pad == y_cols(q) && 
-         nb == (nchunks < NB_MAX ? nchunks : NB_MAX) &&
+         q_pad == y_cols(q) && npsr >= 1 && npsr <= 65535 && strides &&
+         nb == (nchunks < per ? nchunks : per) &&
          (uintptr_t)T % 16 == 0 && (uintptr_t)A % 16 == 0 &&
          (uintptr_t)w % 16 == 0;
 }
@@ -472,36 +496,41 @@ static bool check_shape(const void* T, const void* A, const void* w, int n,
 template <typename TT>
 static cudaError_t launch_pass1(const void* T, const double* A,
                                 const double* w, int n, int k, int p1,
-                                int nb, double* partial, cudaStream_t stream) {
+                                int nb, int npsr, double* partial,
+                                cudaStream_t stream) {
   const size_t smem = pass1_smem(k, p1, (int)sizeof(TT));
   cudaError_t err = cudaFuncSetAttribute(
       fused_gram_pass1<TT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  fused_gram_pass1<TT><<<nb, THREADS, smem, stream>>>(
+  fused_gram_pass1<TT><<<dim3(nb, npsr), THREADS, smem, stream>>>(
       static_cast<const TT*>(T), A, w, n, k, p1, (n + ROWS - 1) / ROWS,
       partial);
   return cudaGetLastError();
 }
 
 // C entry: launches both passes on `stream` and returns cudaGetLastError().
-// The caller allocates `partial` (nb * ntiles * 128 f64) and the outputs,
-// and checks shapes, types, contiguity and alignment.
+// The caller allocates `partial` (npsr * nb * ntiles * 128 f64) and the
+// outputs (npsr of each Gram block), and checks shapes, types, contiguity
+// and alignment.
 extern "C" int fused_gram_joint_launch(const void* T, int t_is_f64,
                                        const double* A, const double* w,
                                        int n, int k, int p1, int q_pad,
-                                       int nb, int threads, double* partial,
-                                       double* gtt, double* gta, double* gaa,
+                                       int nb, int threads, int npsr,
+                                       double* partial, double* gtt,
+                                       double* gta, double* gaa,
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!check_shape(T, A, w, n, k, p1, q_pad, nb, threads))
+  if (!check_shape(T, A, w, n, k, p1, q_pad, nb, threads, npsr,
+                   t_is_f64 ? 8 : 4))
     return (int)cudaErrorInvalidValue;  // outside the kernel's design
   cudaError_t err =
-      t_is_f64 ? launch_pass1<double>(T, A, w, n, k, p1, nb, partial, s)
-               : launch_pass1<float>(T, A, w, n, k, p1, nb, partial, s);
+      t_is_f64
+          ? launch_pass1<double>(T, A, w, n, k, p1, nb, npsr, partial, s)
+          : launch_pass1<float>(T, A, w, n, k, p1, nb, npsr, partial, s);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (tile_count(k + p1) * TELEMS + 31) / 32;
-  fused_gram_pass2<<<blocks, P2_WARPS * 32, 0, s>>>(partial, nb, k, p1, gtt,
-                                                    gta, gaa);
+  fused_gram_pass2<<<dim3(blocks, npsr), P2_WARPS * 32, 0, s>>>(
+      partial, nb, k, p1, gtt, gta, gaa);
   return (int)cudaGetLastError();
 }

@@ -60,6 +60,13 @@
 // fused_block_table derives from the shapes; which warp owns a tile does
 // not change its bits.
 //
+// A pulsar axis, as in fused_gram_joint.cu: blockIdx.y is the pulsar of P
+// matrices T (P, n, k), A (P, n, p1), w (P, n), one launch for all (the
+// reference's pallas_call under jax.vmap).  Each pulsar's rows go to nbr =
+// min(ceil(n / ROWS), ceil(floor(132 / ngroups) / P)) row runs, its
+// partials to a slab of its own, reduced by pass 2 alone in the order
+// above; for P = 1 this is the single launch, bit for bit.
+//
 // On an H100 (700 W; chip_smoke.py and profiling/torch_fused_gram_split.py,
 // PERF.md) pass 1 takes ~0.21 ms at the MSP's shape, against ~0.32 for
 // the panel-pair kernel this replaces and ~0.25 for one f64 GEMM of the
@@ -413,6 +420,7 @@ struct WideBlock {
 // Warps 0-7 run the MMAs, warps 8-11 convert, and lane 0 of warp 8 issues
 // the copies: the first STAGES chunks up front, then chunk it + STAGES as
 // soon as every converter has released chunk it's stage.
+// blockIdx.y is the pulsar: its T, A and w, and its slab of partials.
 template <typename TT, int ROWS>
 __global__ void __launch_bounds__(WTHREADS, 1)
     wide_pass1(const TT* __restrict__ T, const double* __restrict__ A,
@@ -420,8 +428,10 @@ __global__ void __launch_bounds__(WTHREADS, 1)
                int ytiles, int ngroups, int nbg_max, int nchunks,
                const int* __restrict__ table, double* __restrict__ partial) {
   extern __shared__ __align__(128) unsigned char smem[];
-  WideBlock<TT, ROWS> b(smem, T, A, w, n, k, p1, ytiles, ngroups, nbg_max,
-                        nchunks, table);
+  const long psr = blockIdx.y;
+  partial += psr * (gridDim.x / ngroups) * (long)tile_count(k + p1) * TELEMS;
+  WideBlock<TT, ROWS> b(smem, T + psr * n * k, A + psr * n * p1, w + psr * n,
+                        n, k, p1, ytiles, ngroups, nbg_max, nchunks, table);
   __syncthreads();  // the barriers and the column map are ready
   if (b.warp >= MMA_WARPS) {
     const bool producer = b.warp == MMA_WARPS && b.lane == 0;
@@ -449,7 +459,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
 // block: warp w sums row runs w, w + 16, ... (contiguous 256-byte loads
 // across the warp), then the block adds the 16 warp sums in order and
 // scatters the upper-triangle element (a, c) to G_TT (both triangles),
-// G_TA or G_AA (both triangles).
+// G_TA or G_AA (both triangles).  blockIdx.y is the pulsar.
 __global__ void __launch_bounds__(P2_WARPS * 32)
     wide_pass2(const double* __restrict__ partial, int nbr, int k, int p1,
                double* __restrict__ gtt, double* __restrict__ gta,
@@ -458,6 +468,11 @@ __global__ void __launch_bounds__(P2_WARPS * 32)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q = k + p1;
   const long npe = (long)tile_count(q) * TELEMS;
+  const long psr = blockIdx.y;
+  partial += psr * nbr * npe;
+  gtt += psr * k * k;
+  gta += psr * k * p1;
+  gaa += psr * p1 * p1;
   const long pe = (long)blockIdx.x * 32 + lane;
   double s = 0.0;
   if (pe < npe) {
@@ -487,40 +502,49 @@ template <typename TT, int ROWS>
 static cudaError_t launch_pass1(const void* T, const double* A,
                                 const double* w, int n, int k, int p1,
                                 int ytiles, int ngroups, int nbg_max,
-                                int nbr, const int* table, double* partial,
-                                cudaStream_t stream) {
+                                int nbr, int npsr, const int* table,
+                                double* partial, cudaStream_t stream) {
   const size_t smem = wide_smem(ROWS, ytiles, k, p1, (int)sizeof(TT), nbg_max);
   cudaError_t err = cudaFuncSetAttribute(
       wide_pass1<TT, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  wide_pass1<TT, ROWS><<<ngroups * nbr, WTHREADS, smem, stream>>>(
+  wide_pass1<TT, ROWS><<<dim3(ngroups * nbr, npsr), WTHREADS, smem,
+                         stream>>>(
       static_cast<const TT*>(T), A, w, n, k, p1, ytiles, ngroups, nbg_max,
       (n + ROWS - 1) / ROWS, table, partial);
   return cudaGetLastError();
 }
 
 // C entry: launches both passes on `stream` and returns cudaGetLastError().
-// The caller allocates `partial` (nbr * tile_count(q) * 128 f64) and the
-// outputs, puts ops/fused_gram.py::wide_geometry(q)'s table on the card,
-// and checks shapes, types, contiguity and alignment against
-// fused_block_table; the geometry is re-checked here.
+// The caller allocates `partial` (npsr * nbr * tile_count(q) * 128 f64)
+// and the outputs (npsr of each Gram block), puts ops/fused_gram.py::
+// wide_geometry(q)'s table on the card, and checks shapes, types,
+// contiguity and alignment against fused_block_table; the geometry is
+// re-checked here.
 extern "C" int fused_gram_wide_launch(const void* T, int t_is_f64,
                                       const double* A, const double* w,
                                       int n, int k, int p1, int rows,
                                       int ytiles, int ngroups, int nbg_max,
-                                      int nbr, int threads, const int* table,
-                                      double* partial, double* gtt,
-                                      double* gta, double* gaa,
+                                      int nbr, int threads, int npsr,
+                                      const int* table, double* partial,
+                                      double* gtt, double* gta, double* gaa,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int q = k + p1, es = t_is_f64 ? 8 : 4;
+  // a pulsar's row runs: the single launch's NB_MAX / ngroups, shared out
+  const int per =
+      ngroups >= 1 && npsr >= 1 ? (NB_MAX / ngroups + npsr - 1) / npsr : 0;
+  const bool strides = npsr == 1 || ((long)n * k * es % 16 == 0 &&
+                                     (long)n * p1 * 8 % 16 == 0 &&
+                                     (long)n * 8 % 16 == 0);
   const bool ok =
       threads == WTHREADS && n >= 1 && k >= 1 && p1 >= 1 && q >= Q_MIN &&
       q <= Q_MAX && (rows == 16 || rows == 32) && ytiles >= 1 &&
       ytiles <= YT_MAX && nbg_max >= 1 && nbg_max <= NBG_MAX &&
       BAND * (nbg_max - 1) < q && ngroups >= 1 && nbr >= 1 &&
-      nbr <= (n + rows - 1) / rows && ngroups * nbr <= NB_MAX &&
+      nbr <= (n + rows - 1) / rows && nbr <= per && npsr >= 1 &&
+      npsr <= 65535 && strides &&
       wide_smem(rows, ytiles, k, p1, es, nbg_max) <= SMEM_MAX &&
       (uintptr_t)T % 16 == 0 && (uintptr_t)A % 16 == 0 &&
       (uintptr_t)w % 16 == 0;
@@ -528,21 +552,21 @@ extern "C" int fused_gram_wide_launch(const void* T, int t_is_f64,
   cudaError_t err;
   if (rows == 32)
     err = t_is_f64 ? launch_pass1<double, 32>(T, A, w, n, k, p1, ytiles,
-                                              ngroups, nbg_max, nbr, table,
-                                              partial, s)
+                                              ngroups, nbg_max, nbr, npsr,
+                                              table, partial, s)
                    : launch_pass1<float, 32>(T, A, w, n, k, p1, ytiles,
-                                             ngroups, nbg_max, nbr, table,
-                                             partial, s);
+                                             ngroups, nbg_max, nbr, npsr,
+                                             table, partial, s);
   else
     err = t_is_f64 ? launch_pass1<double, 16>(T, A, w, n, k, p1, ytiles,
-                                              ngroups, nbg_max, nbr, table,
-                                              partial, s)
+                                              ngroups, nbg_max, nbr, npsr,
+                                              table, partial, s)
                    : launch_pass1<float, 16>(T, A, w, n, k, p1, ytiles,
-                                             ngroups, nbg_max, nbr, table,
-                                             partial, s);
+                                             ngroups, nbg_max, nbr, npsr,
+                                             table, partial, s);
   if (err != cudaSuccess) return (int)err;
   const long elems = (long)tile_count(q) * TELEMS;
-  wide_pass2<<<(unsigned)((elems + 31) / 32), P2_WARPS * 32, 0, s>>>(
-      partial, nbr, k, p1, gtt, gta, gaa);
+  wide_pass2<<<dim3((unsigned)((elems + 31) / 32), npsr), P2_WARPS * 32, 0,
+               s>>>(partial, nbr, k, p1, gtt, gta, gaa);
   return (int)cudaGetLastError();
 }

@@ -12,6 +12,11 @@ class PintTpuError(Exception):
     """Base class for the port's errors."""
 
 
+class TimingModelError(PintTpuError):
+    """A model cannot evaluate what was asked of it (e.g. DM residuals
+    of TOAs without wideband DM measurements)."""
+
+
 class ConvergenceFailure(PintTpuError):
     """A fitter failed to converge."""
 

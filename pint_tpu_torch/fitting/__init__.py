@@ -1,8 +1,8 @@
-"""Fitters: WLS, GLS and their downhill variants.
+"""Fitters: WLS, GLS, their downhill variants, the wideband fitters and
+the scipy minimizers.
 
-Counterpart of ``pint_tpu/fitting/__init__.py`` without the wideband
-fitters (ROADMAP A7).  Every fitter takes ``(toas, model)`` and
-``device=None``, meaning the CUDA card.
+Counterpart of ``pint_tpu/fitting/__init__.py``.  Every fitter takes
+``(toas, model)`` and ``device=None``, meaning the CUDA card.
 """
 
 from pint_tpu_torch.fitting.downhill import (  # noqa: F401
@@ -11,25 +11,27 @@ from pint_tpu_torch.fitting.downhill import (  # noqa: F401
     DownhillWLSFitter,
 )
 from pint_tpu_torch.fitting.gls import GLSFitter  # noqa: F401
+from pint_tpu_torch.fitting.minimize import (  # noqa: F401
+    MinimizeFitter,
+    PowellFitter,
+)
 from pint_tpu_torch.fitting.utils import ftest  # noqa: F401
+from pint_tpu_torch.fitting.wideband import (  # noqa: F401
+    WidebandDownhillFitter,
+    WidebandResiduals,
+    WidebandTOAFitter,
+)
 from pint_tpu_torch.fitting.wls import WLSFitter  # noqa: F401
-
-
-def _is_wideband(toas) -> bool:
-    """Whether every TOA of a host TOA table carries a wideband DM
-    measurement (a ``pp_dm`` flag).  A device bundle carries no flags."""
-    flags = toas.get("flags") if isinstance(toas, dict) else None
-    return bool(flags) and all("pp_dm" in f for f in flags)
+from pint_tpu_torch.toas.bundle import is_wideband
 
 
 def auto_fitter(toas, model, downhill: bool = True, **kw):
-    """Pick a fitter by model content, as the reference does: correlated
-    noise -> GLS, else WLS; the downhill variants by default.  Wideband
-    TOAs raise NotImplementedError (ROADMAP A7)."""
-    if _is_wideband(toas):
-        raise NotImplementedError(
-            "wideband TOAs need the wideband fitters, which are not ported "
-            "yet (ROADMAP A7)")
+    """Pick a fitter by the data and the model, as the reference does:
+    wideband TOAs -> the wideband fitters; correlated noise -> GLS, else
+    WLS; the downhill variants by default."""
+    if is_wideband(toas):
+        cls = WidebandDownhillFitter if downhill else WidebandTOAFitter
+        return cls(toas, model, **kw)
     correlated = any(
         c.introduces_correlated_errors for c in model.noise_components
     )

@@ -240,29 +240,44 @@ def default_accel_mode(cm) -> str:
     return "mixed" if cm.has_correlated_errors else "f64"
 
 
-def gauss_newton_step(cm, x, mode: str):
-    """One reduced-rank GLS Gauss-Newton step at x:
+def narrowband_inputs(cm, x):
+    """(residuals, design with offset, Ndiag) of one narrowband step."""
+    r = cm.time_residuals(x, subtract_mean=False)
+    M = design_with_offset(cm, x)
+    Ndiag = torch.square(cm.scaled_sigma(x))
+    return r, M, Ndiag
+
+
+def step_from(x, mode: str, no: int, inputs, noise, fourier_spec):
+    """One reduced-rank GLS Gauss-Newton step at x from its parts:
+    ``inputs`` = (r, M, Ndiag), ``noise()`` -> (T, phi) of the same rows,
+    ``fourier_spec()`` -> (t_sec, freqs, phi) for the fourier mode;
     -> (x_new, (covn, norm), chi2, nbad), covariance kept normalized."""
     if mode not in ("mixed", "f64", "fourier"):
         raise ValueError(
             f"unknown GLS step mode {mode!r}: expected 'mixed', 'f64' or "
             "'fourier'"
         )
-    no = noffset(cm)
-    r = cm.time_residuals(x, subtract_mean=False)
-    M = design_with_offset(cm, x)
-    Ndiag = torch.square(cm.scaled_sigma(x))
+    r, M, Ndiag = inputs
     if mode == "fourier":
-        t_sec, freqs, phi = cm.noise_fourier_spec(x)
+        t_sec, freqs, phi = fourier_spec()
         dx, cov, chi2, nbad = gls_step_woodbury_fourier(
             r, M, Ndiag, t_sec, freqs, phi, normalized_cov=True
         )
     else:
         step = (gls_step_woodbury_mixed if mode == "mixed"
                 else gls_step_woodbury)
-        T, phi = cm.noise_basis_or_empty(x)
+        T, phi = noise()
         dx, cov, chi2, nbad = step(r, M, Ndiag, T, phi, normalized_cov=True)
     return x + dx[no:], cov, chi2, nbad
+
+
+def gauss_newton_step(cm, x, mode: str):
+    """One reduced-rank GLS Gauss-Newton step at x of a narrowband model:
+    -> (x_new, (covn, norm), chi2, nbad), covariance kept normalized."""
+    return step_from(x, mode, noffset(cm), narrowband_inputs(cm, x),
+                     lambda: cm.noise_basis_or_empty(x),
+                     lambda: cm.noise_fourier_spec(x))
 
 
 class GLSFitter(Fitter):
@@ -283,6 +298,25 @@ class GLSFitter(Fitter):
         super().__init__(toas, model, device=device)
         self.fused = fused
 
+    # -- the step's parts: the wideband fitter stacks [TOA; DM] rows ------
+    def _step_inputs(self, x):
+        """(residuals, design with offset, Ndiag) of one GLS step."""
+        return narrowband_inputs(self.cm, x)
+
+    def _step_noise(self, x):
+        """(T, phi): the reduced-rank basis of _step_inputs' rows."""
+        return self.cm.noise_basis_or_empty(x)
+
+    def _fourier_available(self) -> bool:
+        """Whether the streaming-basis (fourier) step applies."""
+        return self.cm.noise_fourier_spec(self.cm.x0()) is not None
+
+    def _gn_step(self, x, mode: str):
+        """One Gauss-Newton step built from the three hooks."""
+        return step_from(x, mode, self._noffset, self._step_inputs(x),
+                         lambda: self._step_noise(x),
+                         lambda: self.cm.noise_fourier_spec(x))
+
     def _step_mode(self) -> str:
         """'fourier' (streaming-basis Grams), 'mixed' (general-basis f32
         Grams) or 'f64'."""
@@ -291,7 +325,7 @@ class GLSFitter(Fitter):
         if self.fused == "mixed":
             return "mixed"
         if self.fused is True:
-            if self.cm.noise_fourier_spec(self.cm.x0()) is None:
+            if not self._fourier_available():
                 raise PintTpuError(
                     "fused=True needs a single pure-Fourier correlated-"
                     "noise basis (PL red noise)"
@@ -313,7 +347,7 @@ class GLSFitter(Fitter):
 
             def live_step(x):
                 self.steps_taken += 1
-                return gauss_newton_step(self.cm, x, rung_mode)
+                return self._gn_step(x, rung_mode)
 
             return run_fit_loop(live_step, self.cm.x0(), p, maxiter,
                                 tol_chi2)

@@ -41,9 +41,8 @@ from pint_tpu_torch.ops.scalarmath import cos_p, sin_p
 _MAS_YR = MAS_TO_RAD / SECS_PER_JULIAN_YEAR
 
 
-def _sincos_about_raw(angle, ref: float):
+def _sincos_about_raw(angle, ref, s0, c0):
     e = angle - ref
-    s0, c0 = math.sin(ref), math.cos(ref)
     se = torch.sin(e)
     cm1 = -2.0 * torch.square(torch.sin(0.5 * e))
     return s0 + (s0 * cm1 + c0 * se), c0 + (c0 * cm1 - s0 * se)
@@ -58,20 +57,26 @@ class _SinCosAbout(torch.autograd.Function):
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(angle, ref):
-        return _sincos_about_raw(angle, ref)
+    def forward(angle, ref, s0, c0):
+        return _sincos_about_raw(angle, ref, s0, c0)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.save_for_forward(*output)
 
     @staticmethod
-    def jvp(ctx, t_angle, _t_ref):
+    def jvp(ctx, t_angle, _t_ref, _t_s0, _t_c0):
         s, c = ctx.saved_tensors
         return c * t_angle, -s * t_angle
 
 
-def sincos_about(angle, ref: float):
+def anchor_of(ref: float) -> tuple:
+    """(ref, sin(ref), cos(ref)) on the host: what :func:`sincos_about`
+    takes the angle about."""
+    return float(ref), math.sin(ref), math.cos(ref)
+
+
+def sincos_about(angle, ref):
     """(sin, cos) of ``angle`` (a tensor near the host float ``ref``) by
     the angle-addition identities about ``ref``: sin(ref) and cos(ref) on
     the host, and only the small offset e = angle - ref (exact, by
@@ -80,8 +85,12 @@ def sincos_about(angle, ref: float):
     terms is ~|e| ulps of the result, so every device that has IEEE f64
     adds and multiplies gets the same bits (but for a result within
     |e| ulps of a rounding boundary); the identities are exact for any
-    e, so the accuracy is that of sin and cos."""
-    return _SinCosAbout.apply(angle, float(ref))
+    e, so the accuracy is that of sin and cos.  ``ref`` may also be
+    :func:`anchor_of`'s triple as device scalars (the parameter dict's
+    anchors), which gives the same bits."""
+    if not isinstance(ref, tuple):
+        ref = anchor_of(ref)
+    return _SinCosAbout.apply(angle, *ref)
 
 
 def _dot3(a, b):
@@ -108,7 +117,7 @@ class Astrometry(DelayComponent):
         if self.params["POSEPOCH"].value is not None:
             day, sec = pdict["POSEPOCH"]
         else:
-            day, sec = float(bundle.tdb_day[0]), 0.0
+            day, sec = bundle.tdb_day[0], 0.0
         return bundle.dt_seconds(day, sec).to_float()
 
     def ssb_to_psr_xyz(self, pdict, bundle):
@@ -130,6 +139,17 @@ class Astrometry(DelayComponent):
             return 0.0
         return pdict["PX"]
 
+    #: the angle parameters the unit vector is taken about
+    _ANGLES = ()
+
+    def anchors(self) -> dict:
+        return {f"{n}:anchor": anchor_of(self.params[n].internal())
+                for n in self._ANGLES}
+
+    def _anchor(self, pdict, name):
+        a = pdict.get(f"{name}:anchor")
+        return a if a is not None else self.params[name].internal()
+
     def _pm_pair(self, pdict, lon, lat):
         pml, pmb = pdict.get(lon), pdict.get(lat)
         return (0.0 if pml is None else pml, 0.0 if pmb is None else pmb)
@@ -148,6 +168,8 @@ class Astrometry(DelayComponent):
 
 
 class AstrometryEquatorial(Astrometry):
+    _ANGLES = ("RAJ", "DECJ")
+
     def __init__(self):
         super().__init__()
         self.add_param(
@@ -178,8 +200,8 @@ class AstrometryEquatorial(Astrometry):
             dt = self._dt_pos(pdict, bundle)
         dec = dec0 if pmdec is None else dec0 + pmdec * dt
         ra = ra0 if pmra is None else ra0 + pmra * dt / cos_p(dec0)
-        sind, cosd = sincos_about(dec, self.params["DECJ"].internal())
-        sina, cosa = sincos_about(ra, self.params["RAJ"].internal())
+        sind, cosd = sincos_about(dec, self._anchor(pdict, "DECJ"))
+        sina, cosa = sincos_about(ra, self._anchor(pdict, "RAJ"))
         return torch.stack(
             torch.broadcast_tensors(cosa * cosd, sina * cosd, sind),
             dim=-1,
@@ -201,6 +223,8 @@ class AstrometryEcliptic(Astrometry):
     """Ecliptic coordinates (ELONG, ELAT, PMELONG, PMELAT), rotated to
     equatorial by the IERS2010 mean obliquity at J2000, as NANOGrav
     models give their positions."""
+
+    _ANGLES = ("ELONG", "ELAT")
 
     def __init__(self):
         super().__init__()
@@ -241,8 +265,8 @@ class AstrometryEcliptic(Astrometry):
         pmb = pdict.get("PMELAT")
         bet = bet0 if pmb is None else bet0 + pmb * dt
         lam = lam0 if pml is None else lam0 + pml * dt / cos_p(bet0)
-        sb, cb = sincos_about(bet, self.params["ELAT"].internal())
-        sl, cl = sincos_about(lam, self.params["ELONG"].internal())
+        sb, cb = sincos_about(bet, self._anchor(pdict, "ELAT"))
+        sl, cl = sincos_about(lam, self._anchor(pdict, "ELONG"))
         x_ecl = torch.stack(
             torch.broadcast_tensors(cl * cb, sl * cb, sb), dim=-1)
         return self._ecl_to_equ(x_ecl)

@@ -5,9 +5,9 @@ selection rule: a component is included when the par text names a
 parameter (or mask family, or indexed-family member such as DMX_0017)
 that it alone of the ported non-binary components accepts; the binary
 model is chosen by the BINARY line alone; SolarSystemShapiro comes with
-astrometry.  Every narrowband component of the reference is ported;
-DMJUMP, DMEFAC and DMEQUAD, which act only on wideband DM measurements,
-raise NotImplementedError naming ROADMAP A7.  A line no component
+astrometry.  Every component of the reference is ported, the wideband
+DMJUMP (``DMJump``) and DMEFAC/DMEQUAD (``ScaleDmError``) included.  A
+line no component
 accepts is left out with an ``UnknownParameterWarning`` and kept in
 ``model.unrecognized``, as the reference's builder does.  ``UNITS TCB``
 converts the parameters to TDB (``tcb_conversion.py``).
@@ -26,7 +26,11 @@ from pint_tpu_torch.models.astrometry import (
     AstrometryEquatorial,
 )
 from pint_tpu_torch.models.chromatic import ChromaticCM
-from pint_tpu_torch.models.dispersion import DispersionDM, DispersionDMX
+from pint_tpu_torch.models.dispersion import (
+    DispersionDM,
+    DispersionDMX,
+    DMJump,
+)
 from pint_tpu_torch.models.frequency_dependent import FD, FDJump
 from pint_tpu_torch.models.glitch import Glitch
 from pint_tpu_torch.models.ifunc import IFunc
@@ -36,6 +40,7 @@ from pint_tpu_torch.models.noise import (
     PLChromNoise,
     PLDMNoise,
     PLRedNoise,
+    ScaleDmError,
     ScaleToaError,
 )
 from pint_tpu_torch.models.parameter import (
@@ -61,10 +66,11 @@ from pint_tpu_torch.models.wave import CMWaveX, DMWaveX, Wave, WaveX
 SELECTABLE = {
     cls.__name__: cls
     for cls in (AbsPhase, AstrometryEcliptic, AstrometryEquatorial,
-                CMWaveX, ChromaticCM, DMWaveX, DispersionDM, DispersionDMX,
-                EcorrNoise, FD, FDJump, Glitch, IFunc, PLChromNoise,
-                PLDMNoise, PLRedNoise, PhaseJump, PhaseOffset,
-                PiecewiseSpindown, ScaleToaError, SolarSystemShapiro,
+                CMWaveX, ChromaticCM, DMJump, DMWaveX, DispersionDM,
+                DispersionDMX, EcorrNoise, FD, FDJump, Glitch, IFunc,
+                PLChromNoise, PLDMNoise, PLRedNoise, PhaseJump, PhaseOffset,
+                PiecewiseSpindown, ScaleDmError, ScaleToaError,
+                SolarSystemShapiro,
                 SolarWindDispersion, SolarWindDispersionX, Spindown,
                 TroposphereDelay, Wave, WaveX)
 }
@@ -98,21 +104,8 @@ def parse_parfile(text: str) -> "OrderedDict[str, list[list[str]]]":
     return out
 
 
-#: par lines of the reference's wideband-only components (DMJUMP, and
-#: ScaleDmError's DMEFAC/DMEQUAD), left to ROADMAP A7
-WIDEBAND_ONLY = ("DMJUMP", "DMEFAC", "DMEQUAD")
-
-
 class UnknownParameterWarning(UserWarning):
     """Par lines that no component accepts (the model still builds)."""
-
-
-def _not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"par line {name!r} acts only on wideband DM measurements and is "
-        "outside the ported slice; ROADMAP A7 (DMJUMP and ScaleDmError, "
-        "with the wideband fit)"
-    )
 
 
 def _choose(pardict) -> list:
@@ -161,9 +154,6 @@ def get_model(par_text: str) -> TimingModel:
     units = pardict.get("UNITS", [["TDB"]])[0][0].upper()
     if units not in ("TDB", "TCB"):
         raise ValueError(f"UNITS {units!r}: only TDB and TCB par files")
-    for name in pardict:
-        if name in WIDEBAND_ONLY:
-            raise _not_ported(name)
     comps = _choose(pardict)
     model = TimingModel(components=comps)
     counters: dict[tuple[int, str], int] = {}

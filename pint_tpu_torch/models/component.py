@@ -80,6 +80,19 @@ class Component:
             if p is None or p.value is None:
                 raise ValueError(f"{type(self).__name__} needs {n}")
 
+    def anchors(self) -> dict:
+        """Host values the kernels are taken about, as ``{pdict key:
+        (value, ...)}``; CompiledModel puts them in the parameter dict as
+        device scalars (``timing_model.py::device_anchors``), so a PTA
+        batch carries each pulsar's own."""
+        return {}
+
+    def host_state(self) -> tuple:
+        """Host parameter values the kernels read at call time, other
+        than through the parameter dict: a PTA batch refuses pulsars
+        whose host states differ (``parallel/pta.py``)."""
+        return ()
+
     def mask_families(self) -> dict:
         """prefix -> factory(index) for repeated par lines (EFAC, ...)."""
         return {}

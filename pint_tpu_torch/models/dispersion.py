@@ -1,9 +1,10 @@
 """Dispersion delays: the DM polynomial and piecewise DMX offsets.
 
 Counterpart of ``pint_tpu/models/dispersion.py`` (``DispersionDM``,
-``DispersionDMX``): delay = K * DM(t) / f^2 with K the Tempo constant,
-DM(t) a Taylor series in (t - DMEPOCH) with the factorial convention,
-plus one constant DMX_#### over each MJD range [DMXR1_####, DMXR2_####].
+``DispersionDMX``, ``DMJump``): delay = K * DM(t) / f^2 with K the Tempo
+constant, DM(t) a Taylor series in (t - DMEPOCH) with the factorial
+convention, plus one constant DMX_#### over each MJD range [DMXR1_####,
+DMXR2_####]; DMJUMPs shift only the model of wideband DM measurements.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from pint_tpu_torch.models.component import DelayComponent
 from pint_tpu_torch.models.parameter import (
     MJDParameter,
     floatParameter,
+    maskParameter,
     prefix_index,
 )
 from pint_tpu_torch.ops.taylor import taylor_horner
@@ -148,3 +150,33 @@ class DispersionDMX(DelayComponent):
     def delay_term(self, pdict, bundle, acc_delay):
         return DM_CONST * self.dm_value(pdict, bundle) / torch.square(
             bundle.freq_mhz)
+
+
+class DMJump(DelayComponent):
+    """Wideband DM jumps (DMJUMP mask family): they shift the model of
+    the DM *measurements*, not the delay.  The delay term is zero;
+    ``dm_offset`` subtracts each selected DMJUMP from the model DM that
+    the wideband DM residuals compare with (``CompiledModel.dm_model``)."""
+
+    category = "dispersion_jump"
+
+    def __init__(self):
+        super().__init__()
+        self.dmjump_params: list[str] = []
+
+    def add_dmjump(self, idx: int) -> maskParameter:
+        name = f"DMJUMP{idx}"
+        self.dmjump_params.append(name)
+        return self.add_param(maskParameter(name, units="pc/cm^3"))
+
+    def mask_families(self):
+        return {"DMJUMP": self.add_dmjump}
+
+    def delay_term(self, pdict, bundle, acc_delay):
+        return torch.zeros_like(bundle.freq_mhz)
+
+    def dm_offset(self, pdict, bundle):
+        off = torch.zeros_like(bundle.freq_mhz)
+        for n in self.dmjump_params:
+            off = off - pdict[n] * bundle.masks[n]
+        return off

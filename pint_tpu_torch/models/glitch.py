@@ -61,6 +61,13 @@ class Glitch(PhaseComponent):
             if n.startswith("GLEP_") and self.params[n].value is not None
         )
 
+    def host_state(self) -> tuple:
+        # which glitches have a decay term shapes the kernel
+        return tuple(
+            self.params[f"GLTD_{i}"].value is not None
+            and float(self.params[f"GLTD_{i}"].value) != 0.0
+            for i in self.glitch_indices)
+
     def phase_term(self, pdict, bundle, delay):
         total = torch.zeros_like(bundle.freq_mhz)
         for i in self.glitch_indices:

@@ -43,6 +43,12 @@ class IFunc(PhaseComponent):
             and self.params[n].value is not None
         )
 
+    def host_state(self) -> tuple:
+        # the nodes and the interpolation mode are read on the host
+        return (self.params["SIFUNC"].value,
+                tuple(tuple(self.params[f"IFUNC{i}"].value)
+                      for i in self.ifunc_indices))
+
     def phase_term(self, pdict, bundle, delay):
         if not self.ifunc_indices:
             return DD.zeros(bundle.ntoa, bundle.device)

@@ -1,11 +1,13 @@
-"""Noise components: white rescaling, ECORR and the power-law red, DM and
-chromatic noise.
+"""Noise components: white rescaling, ECORR, the power-law red, DM and
+chromatic noise, and the wideband DM-error rescaling.
 
-Counterpart of ``pint_tpu/models/noise.py`` for all of its narrowband
-noise components, through the same two consumer interfaces:
+Counterpart of ``pint_tpu/models/noise.py`` for all of its noise
+components, through the same consumer interfaces:
 
   scaled_sigma(pdict, bundle, sigma_s) -> per-TOA white sigma (seconds)
   basis_weight(pdict, bundle) -> (basis (n, k), weight (k,)) or None
+  scaled_dm_sigma(pdict, bundle, sigma_dm) -> per-TOA DM-measurement
+      sigma (pc cm^-3), ScaleDmError's alone
 
 The correlated covariance never forms as n x n: it enters as
 C = N + T phi T^T with k << n.  The power-law sin/cos bases depend only
@@ -91,6 +93,42 @@ class ScaleToaError(NoiseComponent):
             # masked multiplicative: efac where selected, 1 elsewhere
             efac = efac * (1.0 + (pdict[n] - 1.0) * bundle.masks[n])
         return efac * torch.sqrt(torch.square(sigma_s) + equad2)
+
+
+class ScaleDmError(NoiseComponent):
+    """sigma_dm' = DMEFAC * sqrt(sigma_dm^2 + DMEQUAD^2) over mask
+    selections: the wideband DM measurements' errors, read by the
+    wideband fitters (``CompiledModel.scaled_dm_sigma``), never the TOA
+    sigma."""
+
+    category = "scale_dm_error"
+
+    def __init__(self):
+        super().__init__()
+        self.dmefac_params: list[str] = []
+        self.dmequad_params: list[str] = []
+
+    def add_dmefac(self, idx: int):
+        name = f"DMEFAC{idx}"
+        self.dmefac_params.append(name)
+        return self.add_param(maskParameter(name))
+
+    def add_dmequad(self, idx: int):
+        name = f"DMEQUAD{idx}"
+        self.dmequad_params.append(name)
+        return self.add_param(maskParameter(name, units="pc/cm^3"))
+
+    def mask_families(self):
+        return {"DMEFAC": self.add_dmefac, "DMEQUAD": self.add_dmequad}
+
+    def scaled_dm_sigma(self, pdict, bundle, sigma_dm):
+        equad2 = torch.zeros_like(sigma_dm)
+        for n in self.dmequad_params:
+            equad2 = equad2 + torch.square(pdict[n]) * bundle.masks[n]
+        efac = torch.ones_like(sigma_dm)
+        for n in self.dmefac_params:
+            efac = efac * (1.0 + (pdict[n] - 1.0) * bundle.masks[n])
+        return efac * torch.sqrt(torch.square(sigma_dm) + equad2)
 
 
 def quantize_epochs(mjd: np.ndarray, select: np.ndarray,

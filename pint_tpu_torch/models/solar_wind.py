@@ -129,6 +129,14 @@ class SolarWindDispersion(DelayComponent):
         dm = col / _PC_LS
         return torch.where(d > 0, dm, torch.zeros_like(dm))
 
+    def dm_value(self, pdict, bundle):
+        """The solar wind's share of the model DM at each TOA (pc
+        cm^-3), which the wideband DM residuals subtract
+        (``CompiledModel.dm_model``)."""
+        if self.params["NE_SW"].value is None:
+            return torch.zeros_like(bundle.freq_mhz)
+        return self.solar_wind_dm(pdict, bundle)
+
     def delay_term(self, pdict, bundle, acc_delay):
         if self.params["NE_SW"].value is None:
             return torch.zeros_like(bundle.freq_mhz)

@@ -51,7 +51,7 @@ class Spindown(PhaseComponent):
         if self.params["PEPOCH"].value is not None:
             day, sec = pdict["PEPOCH"]
         else:
-            day, sec = float(bundle.tdb_day[0]), 0.0
+            day, sec = bundle.tdb_day[0], 0.0
         return bundle.dt_seconds(day, sec) - delay
 
     def phase_term(self, pdict, bundle, delay):

@@ -22,6 +22,7 @@ import torch
 from torch.func import jacfwd
 
 from pint_tpu_torch.device import F64, resolve_device
+from pint_tpu_torch.exceptions import TimingModelError
 from pint_tpu_torch.models.component import (
     DEFAULT_ORDER,
     Component,
@@ -181,25 +182,38 @@ def _scalar(v: float, device) -> torch.Tensor:
     return torch.full((), float(v), dtype=F64, device=device)
 
 
-def _device_ref(ref: dict, device) -> dict:
-    """Reference values as device scalars: floats -> f64 tensors, HostDD ->
-    DD, epochs -> (day, DD seconds); bools and strings stay static."""
-    out = {}
+def split_ref(ref: dict, device):
+    """Reference values -> (numeric, static): floats as f64 device
+    scalars, HostDD as DD, epochs as (day, DD seconds) with the exact day
+    a device scalar too; bools, strings and pair parameters' float pairs
+    stay static host values.  The numeric part is what a PTA batch
+    stacks, one entry a pulsar (``parallel/pta.py``)."""
+    num, static = {}, {}
     for n, v in ref.items():
         if isinstance(v, HostDD):
-            out[n] = DD(_scalar(v.hi, device), _scalar(v.lo, device))
+            num[n] = DD(_scalar(v.hi, device), _scalar(v.lo, device))
         elif isinstance(v, tuple) and len(v) == 2 and isinstance(
             v[1], HostDD
         ):
             day, sec = v
-            out[n] = (float(day),
+            num[n] = (_scalar(day, device),
                       DD(_scalar(sec.hi, device), _scalar(sec.lo, device)))
-        elif isinstance(v, (bool, str)):
-            out[n] = v
-        elif isinstance(v, (float, int)):
-            out[n] = _scalar(v, device)
+        elif isinstance(v, (float, int)) and not isinstance(v, bool):
+            num[n] = _scalar(v, device)
         else:
-            out[n] = v
+            static[n] = v
+    return num, static
+
+
+def device_anchors(model: TimingModel, device) -> dict:
+    """The host values that components take their kernels about (the
+    astrometry's reference angles with their host sine and cosine,
+    ``Component.anchors``) as device scalars, keyed as the components
+    read them from the parameter dict."""
+    out = {}
+    for c in model._ordered_components():
+        for key, vals in c.anchors().items():
+            out[key] = tuple(_scalar(v, device) for v in vals)
     return out
 
 
@@ -239,7 +253,9 @@ class CompiledModel:
         with 150 DMX ranges would take 300 a call), each value the same
         f64 sum as a scalar add."""
         if self._ref_dev is None:
-            self._ref_dev = _device_ref(self.ref, self.device)
+            num, static = split_ref(self.ref, self.device)
+            self._ref_dev = {**static, **num,
+                             **device_anchors(self.model, self.device)}
             flat = [(n, i) for n, i in self._index.items()
                     if not isinstance(self.ref[n], (HostDD, tuple))]
             self._flat_names = [n for n, _ in flat]
@@ -309,6 +325,42 @@ class CompiledModel:
             b = self.bundle
             return (ph.int_ - b.pulse_number + b.padd) + ph.frac
         return ph.frac
+
+    # -- wideband DM measurements -----------------------------------------
+    def dm_model(self, x):
+        """Model DM at each TOA (pc cm^-3): every delay component's
+        ``dm_value`` (DM, DMX, the solar wind) and ``dm_offset`` (the
+        DMJUMPs' shift to the measurement scale), in component order."""
+        pd = self._pdict(x)
+        dm = torch.zeros(self.bundle.ntoa, dtype=F64, device=self.device)
+        for c in self.model.delay_components:
+            if hasattr(c, "dm_value"):
+                dm = dm + c.dm_value(pd, self.bundle)
+            if hasattr(c, "dm_offset"):
+                dm = dm + c.dm_offset(pd, self.bundle)
+        return dm
+
+    def _dm_measurements(self):
+        b = self.bundle
+        if b.dm_meas is None:
+            raise TimingModelError(
+                "no wideband DM measurements (-pp_dm flags) in these TOAs"
+            )
+        return b.dm_meas, b.dm_err
+
+    def dm_residuals(self, x):
+        """Wideband DM residuals, measured minus model (pc cm^-3)."""
+        return self._dm_measurements()[0] - self.dm_model(x)
+
+    def scaled_dm_sigma(self, x):
+        """Per-TOA DM-measurement uncertainty (pc cm^-3) after the
+        DMEFAC/DMEQUAD rescaling."""
+        sig = self._dm_measurements()[1]
+        pd = self._pdict(x)
+        for c in self.model.noise_components:
+            if hasattr(c, "scaled_dm_sigma"):
+                sig = c.scaled_dm_sigma(pd, self.bundle, sig)
+        return sig
 
     def scaled_sigma(self, x):
         """Per-TOA white uncertainty in seconds after noise rescaling."""

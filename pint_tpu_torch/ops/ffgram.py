@@ -29,8 +29,8 @@ def _chunked_gram_f32(Y, chunk: int):
     accumulates <= ``chunk`` rows before switching to f64."""
     n, q = Y.shape
     n_pad = (n + chunk - 1) // chunk * chunk
-    Yp = torch.zeros((n_pad, q), dtype=F32, device=Y.device)
-    Yp[:n] = Y
+    # zero rows by an out-of-place pad, which torch.func.vmap batches
+    Yp = torch.nn.functional.pad(Y, (0, 0, 0, n_pad - n))
     Yb = Yp.reshape(n_pad // chunk, chunk, q)
     G = torch.bmm(Yb.transpose(1, 2), Yb)
     return torch.sum(G.to(F64), dim=0)
@@ -63,8 +63,7 @@ def make_matmul_split32(A, chunk: int = 128):
     m, K = A.shape
     K_pad = (K + chunk - 1) // chunk * chunk
     nc = K_pad // chunk
-    Ap = torch.zeros((m, K_pad), dtype=A.dtype, device=A.device)
-    Ap[:, :K] = A
+    Ap = torch.nn.functional.pad(A, (0, K_pad - K))
     A_hi = Ap.to(F32)
     A_lo = (Ap - A_hi.to(F64)).to(F32)
     Ab_hi = A_hi.reshape(m, nc, chunk).transpose(0, 1)
@@ -74,8 +73,7 @@ def make_matmul_split32(A, chunk: int = 128):
         return torch.bmm(X, Y).to(F64)
 
     def matmul(B):
-        Bp = torch.zeros((K_pad, B.shape[1]), dtype=B.dtype, device=B.device)
-        Bp[:K] = B
+        Bp = torch.nn.functional.pad(B, (0, 0, 0, K_pad - K))
         B_hi = Bp.to(F32)
         B_lo = (Bp - B_hi.to(F64)).to(F32)
         Bb_hi = B_hi.reshape(nc, chunk, B.shape[1])

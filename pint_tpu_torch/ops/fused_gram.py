@@ -23,9 +23,17 @@ f64 sums free at this kernel's bytes bound (PERF.md).
   wider Y; it counts its launches in
   ``fused_gram_joint_cuda.launches``, those of the wide path also in
   ``fused_gram_joint_cuda.wide_launches``.
+- A pulsar axis: T (P, n, k), A (P, n, p1), w (P, n) give (P, k, k),
+  (P, k, p1), (P, p1, p1) from ONE launch of either kernel (the
+  reference's pallas_call under ``jax.vmap`` gains a batch grid axis);
+  the plain version batches the same way.  The wrapper counts such
+  launches in ``fused_gram_joint_cuda.batched_launches`` as well.
 - :func:`fused_gram_joint` dispatches on where the tensors lie: the
   plain version for CPU tensors, the kernel for CUDA tensors, and no
-  fallback between them.
+  fallback between them.  It goes through ``_JointGram``, an
+  ``autograd.Function`` whose ``vmap`` rule turns a call inside
+  ``torch.func.vmap`` (``parallel/pta.py``'s batched step) into that one
+  batched call.
 - :func:`fused_block_table` says, from the shapes alone, which path
   takes them: it admits exactly the shapes the reference's table admits
   (pad128(k) + pad128(p1) <= 640), and ``fitting/gls.py::_joint_gram``
@@ -216,61 +224,86 @@ def wide_geometry(q: int):
                 table=table)
 
 
-def fused_block_table(n: int, k: int, p1: int):
+def fused_block_table(n: int, k: int, p1: int, npsr: int = 1):
     """Launch geometry for T (n, k), A (n, p1), or None when the
     reference's table refuses the shape (pad128(k) + pad128(p1) > 640).
     A pure function of the shapes.  Returns (nb, q_pad, threads): for
     q = k + p1 <= Q_MAX the narrow path's (pass-1 blocks, Y's width in
     16-column bands, 512); wider, the wide path's (row runs, Y's width in
     16-column bands, 384), whose pass 1 runs ngroups blocks a row run
-    (:func:`wide_geometry`), at most NB_MAX in all."""
-    if not (1 <= n < 2**31 and k >= 1 and p1 >= 1):
+    (:func:`wide_geometry`), at most NB_MAX in all.  With ``npsr``
+    pulsars in one launch, ``nb`` is each pulsar's share: the single
+    launch's count divided by npsr, rounded up (at least one)."""
+    if not (1 <= n < 2**31 and k >= 1 and p1 >= 1 and 1 <= npsr <= 65535):
         return None
     if _pad(k, REF_LANES) + _pad(p1, REF_LANES) > REF_Q_MAX:
         return None
     q = k + p1
     if q <= Q_MAX:
-        return min(-(-n // ROWS), NB_MAX), _pad(q, TILE_ROWS), THREADS
+        return (min(-(-n // ROWS), -(-NB_MAX // npsr)), _pad(q, TILE_ROWS),
+                THREADS)
     geo = wide_geometry(q)
-    return (min(-(-n // geo["rows"]), NB_MAX // geo["ngroups"]),
+    return (min(-(-n // geo["rows"]), -(-(NB_MAX // geo["ngroups"]) // npsr)),
             _pad(q, BAND), WIDE_THREADS)
 
 
 def fused_gram_joint_plain(T32, A, w, precision: str = "highest"):
     """The kernel's function in plain torch (the CPU route, and the
-    yardstick the kernel is held to on the card)."""
+    yardstick the kernel is held to on the card); a leading pulsar axis
+    (T (P, n, k), A (P, n, p1), w (P, n)) gives each pulsar's Grams."""
     check_precision("fused_gram_joint", precision)
-    n, k = T32.shape
+    *lead, n, k = T32.shape
     s32 = torch.sqrt(w).to(F32)
-    Y = torch.cat([T32.to(F32), A.to(F32)], dim=1) * s32[:, None]
+    Y = torch.cat([T32.to(F32), A.to(F32)], dim=-1) * s32[..., None]
+    q = Y.shape[-1]
     n_pad = -(-n // SUB) * SUB
-    Yp = torch.zeros((n_pad, Y.shape[1]), dtype=F64, device=Y.device)
-    Yp[:n] = Y
-    Yb = Yp.reshape(n_pad // SUB, SUB, Y.shape[1])
-    G = torch.sum(torch.bmm(Yb.transpose(1, 2), Yb), dim=0)
-    return G[:k, :k], G[:k, k:], G[k:, k:]
+    Yp = torch.nn.functional.pad(Y.to(F64), (0, 0, 0, n_pad - n))
+    Yb = Yp.reshape(*lead, n_pad // SUB, SUB, q)
+    G = torch.sum(Yb.transpose(-1, -2) @ Yb, dim=-3)
+    return G[..., :k, :k], G[..., :k, k:], G[..., k:, k:]
+
+
+def _aligned_rows(T, A, w):
+    """Pad a pulsar batch's rows to a multiple of 4 with zero rows (zero
+    weight: they add exact zeros), so that every pulsar's T, A and w
+    start 16-byte aligned for the bulk copies."""
+    n = T.shape[1]
+    pad = -n % 4
+    if pad == 0:
+        return T, A, w
+    return (torch.nn.functional.pad(T, (0, 0, 0, pad)),
+            torch.nn.functional.pad(A, (0, 0, 0, pad)),
+            torch.nn.functional.pad(w, (0, pad)))
 
 
 def fused_gram_joint_cuda(T, A, w, precision: str = "highest"):
-    """Launch the CUDA kernel on tensors on one card.  T may be f32 or
-    f64 (the kernel rounds it to f32 as it converts); A and w are f64.
-    Raises, naming the reason, on what the kernel cannot take: the checks
-    of types, shapes, contiguity and 16-byte alignment come before the
-    check of the device."""
+    """Launch the CUDA kernel on tensors on one card: T (n, k), A (n, p1),
+    w (n,), or a pulsar batch T (P, n, k), A (P, n, p1), w (P, n) in ONE
+    launch.  T may be f32 or f64 (the kernel rounds it to f32 as it
+    converts); A and w are f64.  Raises, naming the reason, on what the
+    kernel cannot take: the checks of types, shapes, contiguity and
+    16-byte alignment come before the check of the device."""
     check_precision("fused_gram_joint", precision)
     if T.dtype not in (F32, F64) or A.dtype != F64 or w.dtype != F64:
         raise TypeError(
             "fused_gram_joint_cuda: T f32/f64, A f64, w f64 expected, got "
             f"{T.dtype}, {A.dtype}, {w.dtype}"
         )
-    if T.dim() != 2 or A.dim() != 2 or w.dim() != 1:
-        raise ValueError("fused_gram_joint_cuda: T (n,k), A (n,p1), w (n,)")
-    n, k = T.shape
-    p1 = A.shape[1]
-    if A.shape[0] != n or w.shape[0] != n:
+    batched = T.dim() == 3
+    if (T.dim() not in (2, 3) or A.dim() != T.dim()
+            or w.dim() != T.dim() - 1):
+        raise ValueError("fused_gram_joint_cuda: T (n,k), A (n,p1), w (n,); "
+                         "with a pulsar axis T (P,n,k), A (P,n,p1), w (P,n)")
+    if batched and not (A.shape[0] == w.shape[0] == T.shape[0]):
         raise ValueError(
-            f"fused_gram_joint_cuda: row counts differ {n}, {A.shape[0]}, "
-            f"{w.shape[0]}"
+            f"fused_gram_joint_cuda: pulsar counts differ {T.shape[0]}, "
+            f"{A.shape[0]}, {w.shape[0]}")
+    n, k = T.shape[-2:]
+    p1 = A.shape[-1]
+    if A.shape[-2] != n or w.shape[-1] != n:
+        raise ValueError(
+            f"fused_gram_joint_cuda: row counts differ {n}, {A.shape[-2]}, "
+            f"{w.shape[-1]}"
         )
     if not (T.is_contiguous() and A.is_contiguous() and w.is_contiguous()):
         raise ValueError("fused_gram_joint_cuda: inputs must be contiguous")
@@ -281,7 +314,11 @@ def fused_gram_joint_cuda(T, A, w, precision: str = "highest"):
                 f"bytes past a {ALIGN}-byte boundary; the kernel's bulk copies "
                 "need 16-byte aligned tensors (take a .clone())"
             )
-    tab = fused_block_table(n, k, p1)
+    npsr = T.shape[0] if batched else 1
+    if batched:
+        T, A, w = _aligned_rows(T, A, w)
+        n = T.shape[1]
+    tab = fused_block_table(n, k, p1, npsr)
     if tab is None:
         raise ValueError(
             f"fused_gram_joint_cuda: (n={n}, k={k}, p1={p1}) is outside "
@@ -293,11 +330,13 @@ def fused_gram_joint_cuda(T, A, w, precision: str = "highest"):
     nb, q_pad, threads = tab
     q = k + p1
     wide = q > Q_MAX
-    partial = torch.empty(nb * fused_tile_count(q) * TILE_ROWS * TILE_COLS,
-                          dtype=F64, device=dev)
-    gtt = torch.empty((k, k), dtype=F64, device=dev)
-    gta = torch.empty((k, p1), dtype=F64, device=dev)
-    gaa = torch.empty((p1, p1), dtype=F64, device=dev)
+    partial = torch.empty(
+        npsr * nb * fused_tile_count(q) * TILE_ROWS * TILE_COLS, dtype=F64,
+        device=dev)
+    lead = (npsr,) if batched else ()
+    gtt = torch.empty((*lead, k, k), dtype=F64, device=dev)
+    gta = torch.empty((*lead, k, p1), dtype=F64, device=dev)
+    gaa = torch.empty((*lead, p1, p1), dtype=F64, device=dev)
     p, i = ctypes.c_void_p, ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -305,18 +344,18 @@ def fused_gram_joint_cuda(T, A, w, precision: str = "highest"):
             geo = wide_geometry(q)
             table = _wide_table(q, dev)
             err = c_entry("fused_gram_wide",
-                          [p, i, p, p, i, i, i, i, i, i, i, i, i, p, p, p,
-                           p, p, p])(
+                          [p, i, p, p, i, i, i, i, i, i, i, i, i, i, p, p,
+                           p, p, p, p])(
                 T.data_ptr(), int(T.dtype == F64), A.data_ptr(),
                 w.data_ptr(), n, k, p1, geo["rows"], geo["ytiles"],
-                geo["ngroups"], geo["nbg"], nb, threads, table.data_ptr(),
-                partial.data_ptr(), gtt.data_ptr(), gta.data_ptr(),
-                gaa.data_ptr(), stream)
+                geo["ngroups"], geo["nbg"], nb, threads, npsr,
+                table.data_ptr(), partial.data_ptr(), gtt.data_ptr(),
+                gta.data_ptr(), gaa.data_ptr(), stream)
         else:
             err = c_entry("fused_gram_joint",
-                          [p, i, p, p, i, i, i, i, i, i, p, p, p, p, p])(
+                          [p, i, p, p, i, i, i, i, i, i, i, p, p, p, p, p])(
                 T.data_ptr(), int(T.dtype == F64), A.data_ptr(),
-                w.data_ptr(), n, k, p1, q_pad, nb, threads,
+                w.data_ptr(), n, k, p1, q_pad, nb, threads, npsr,
                 partial.data_ptr(), gtt.data_ptr(), gta.data_ptr(),
                 gaa.data_ptr(), stream)
     if err != 0:
@@ -324,11 +363,16 @@ def fused_gram_joint_cuda(T, A, w, precision: str = "highest"):
                            f"cudaError {err}")
     fused_gram_joint_cuda.launches += 1
     fused_gram_joint_cuda.wide_launches += wide
+    fused_gram_joint_cuda.batched_launches += batched
+    fused_gram_joint_cuda.last_shape = (npsr, n, k, p1)
     return gtt, gta, gaa
 
 
 fused_gram_joint_cuda.launches = 0
 fused_gram_joint_cuda.wide_launches = 0
+fused_gram_joint_cuda.batched_launches = 0
+#: (pulsars, rows, k, p1) of the last launch
+fused_gram_joint_cuda.last_shape = None
 
 
 @functools.lru_cache(maxsize=16)
@@ -338,11 +382,56 @@ def _wide_table(q: int, device):
                         device=device)
 
 
-def fused_gram_joint(T32, A, w, precision: str = "highest"):
-    """Joint Gram of [T | A] under diag(w): the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors."""
+def _aligned(x):
+    """x contiguous and starting 16-byte aligned (a copy if it is not)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % ALIGN == 0 else x.clone()
+
+
+def _joint_gram_direct(T32, A, w, precision):
     if T32.device.type == "cpu":
         return fused_gram_joint_plain(T32, A, w, precision)
     if T32.device.type == "cuda":
-        return fused_gram_joint_cuda(T32, A, w, precision)
+        return fused_gram_joint_cuda(_aligned(T32), _aligned(A),
+                                     _aligned(w), precision)
     raise ValueError(f"fused_gram_joint: unsupported device {T32.device}")
+
+
+class _JointGram(torch.autograd.Function):
+    """The joint Gram as one operation that ``torch.func.vmap`` batches
+    by a rule of its own: the pulsar axis goes to the kernel's batch axis,
+    so a vmapped step launches the kernel once for all pulsars."""
+
+    @staticmethod
+    def forward(T32, A, w, precision):
+        return _joint_gram_direct(T32, A, w, precision)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, T32, A, w, precision):
+        B = info.batch_size
+
+        def flat(x, d, core):
+            # the vmapped axis first (a shared input expanded to it), then
+            # every leading axis folded into one pulsar axis
+            x = (x.unsqueeze(0).expand(B, *x.shape) if d is None
+                 else x.movedim(d, 0))
+            return x.reshape(-1, *x.shape[x.dim() - core:])
+
+        outer = (T32.shape if in_dims[0] is None
+                 else T32.movedim(in_dims[0], 0).shape[1:])[:-2]
+        outs = _JointGram.apply(flat(T32, in_dims[0], 2),
+                                flat(A, in_dims[1], 2),
+                                flat(w, in_dims[2], 1), precision)
+        return (tuple(o.reshape(B, *outer, *o.shape[-2:]) for o in outs),
+                (0, 0, 0))
+
+
+def fused_gram_joint(T32, A, w, precision: str = "highest"):
+    """Joint Gram of [T | A] under diag(w): the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors; inside ``torch.func.vmap``
+    one batched call for the whole batch."""
+    return _JointGram.apply(T32, A, w, precision)

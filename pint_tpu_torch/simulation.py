@@ -11,7 +11,11 @@ seconds, carried exactly), so both packages build the same TOAs.
 ``chip_smoke.py`` and the tests drive: a NANOGrav-class ELL1 MSP modelled
 on J1909-3744, with DMX ranges, FD, a JUMP and red noise.
 :func:`msp_full_par` adds the solar wind, a TZR anchor, PHOFF and the DM
-and chromatic Gaussian-process noise of EPTA- and IPTA-style models.
+and chromatic Gaussian-process noise of EPTA- and IPTA-style models;
+:func:`msp_wideband_par` the DMJUMP, DMEFAC and DMEQUAD of a wideband
+release, whose TOAs ``make_test_pulsar(dm_error=...)`` gives DM
+measurements; :func:`pta_pars` a pulsar timing array of pulsars of
+``msp_par``'s composition, each with its own values.
 
 A model with a TZR anchor (TZRSITE '@') gets its TZR row in the table's
 ``"tzr"`` entry, built by ``AbsPhase.tzr_table`` with the same synthetic
@@ -36,6 +40,19 @@ from pint_tpu_torch.timebase.hostdd import HostDD, carry_days
 MSP_FREQS = (820.0, 1150.0, 1400.0, 1700.0, 2300.0)
 #: the span the DMX ranges cover (MJD), that of the simulations
 MSP_SPAN = (53000.0, 57500.0)
+
+
+def _set_values(text: str, values: dict) -> str:
+    """Par text with the value of each line named in ``values`` replaced
+    (its fit flag kept)."""
+    out = []
+    for line in text.splitlines():
+        tok = line.split()
+        if tok and tok[0] in values:
+            tok[1] = values[tok[0]]
+            line = " ".join(tok)
+        out.append(line)
+    return "\n".join(out) + "\n"
 
 
 def msp_par(ndmx: int = 150, seed: int = 0) -> str:
@@ -85,6 +102,55 @@ def msp_full_par(ndmx: int = 150, seed: int = 0) -> str:
         "PHOFF 0.0", "TNDMAMP -13.6", "TNDMGAM 2.8", "TNDMC 30",
         "TNCHROMAMP -14.0", "TNCHROMGAM 3.0", "TNCHROMC 30",
     ]) + "\n"
+
+
+def msp_wideband_par(ndmx: int = 150, seed: int = 0) -> str:
+    """:func:`msp_par` with golden17's wideband lines: a free DMJUMP on
+    S-wide, DMEFAC on L-wide and DMEQUAD on S-wide.  Free: msp_par's and
+    the DMJUMP (168 at 150 ranges; 169 design columns with the offset,
+    so the stacked joint Gram is q = 60 + 170 = 230 over 2n rows)."""
+    return msp_par(ndmx, seed) + "\n".join([
+        "DMJUMP -f S-wide 3.2e-4 1", "DMEFAC -f L-wide 1.25",
+        "DMEQUAD -f S-wide 1.5e-4",
+    ]) + "\n"
+
+
+def pta_pars(npsr: int = 45, ndmx: int = 100, seed: int = 0) -> list[str]:
+    """Par texts of a pulsar timing array of ``npsr`` pulsars of
+    :func:`msp_par`'s composition (so one PTA batch takes them), each
+    with its own values drawn from ``default_rng(seed)``: F0 in 100-700
+    Hz, F1, ELONG/ELAT, DM, the DMX values (its own seed), PEPOCH and
+    POSEPOCH, and the orbit (PB, A1, TASC).  Free: 117 at 100 ranges (118
+    design columns with the offset; with 60 red-noise columns the joint
+    Gram is q = 179)."""
+    rng = np.random.default_rng(seed)
+    pars = []
+    for i in range(npsr):
+        pep = float(rng.integers(54000, 56500))
+        tasc = 53000.0 + rng.uniform(0.0, 5.0)
+        vals = {
+            "PSR": f"JPTA{i:03d}SIM",
+            "F0": f"{rng.uniform(100.0, 700.0):.14f}",
+            "F1": f"{-10 ** rng.uniform(-16.0, -14.5):.6e}",
+            "ELONG": f"{rng.uniform(0.0, 360.0):.6f}",
+            "ELAT": f"{rng.uniform(-60.0, 60.0):.6f}",
+            "DM": f"{rng.uniform(3.0, 80.0):.5f}",
+            "PEPOCH": f"{pep:.1f}", "POSEPOCH": f"{pep:.1f}",
+            "PB": f"{rng.uniform(0.5, 30.0):.12f}",
+            "A1": f"{rng.uniform(1.0, 30.0):.8f}",
+            "TASC": f"{tasc:.7f}",
+        }
+        pars.append(_set_values(msp_par(ndmx, seed=seed + 1 + i), vals))
+    return pars
+
+
+def pta_ntoas(npsr: int = 45, seed: int = 0, nmin: int = 4000,
+              nmax: int = 10000) -> np.ndarray:
+    """The PTA's TOA counts, drawn from ``default_rng(seed)`` in
+    [nmin, nmax], the largest set to ``nmax``."""
+    n = np.random.default_rng(seed + 0x7A).integers(nmin, nmax + 1, npsr)
+    n[int(np.argmax(n))] = nmax
+    return n
 
 
 def _table(mjd_int, sec: HostDD, freq, error_us, flags) -> dict:
@@ -142,7 +208,8 @@ def make_test_pulsar(par: str, ntoa: int = 64, start_mjd: float = 54000.0,
                      jitter_us: float = 1.0, freqs=(1400.0, 800.0),
                      flags=("L-wide", "S-wide"), error_us: float = 1.0,
                      iterations: int = 3, orbit: bool = False,
-                     orbit_in_phase: bool = False, device=None):
+                     orbit_in_phase: bool = False, device=None,
+                     dm_error: float | None = None):
     """Build (model, toas): the port's model from ``par`` and a TOA table
     of ``ntoa`` barycentric arrivals.
 
@@ -154,6 +221,10 @@ def make_test_pulsar(par: str, ntoa: int = 64, start_mjd: float = 54000.0,
     ``orbit_in_phase=True`` as well, the orbit is in place during the
     inversion, so the simulated arrivals include its delays and the
     model at its par values fits them to the white noise.
+    ``dm_error`` (pc cm^-3) makes the TOAs wideband: each TOA's flags
+    get ``pp_dme`` = dm_error and a ``pp_dm`` equal to the model's DM
+    (``CompiledModel.dm_model`` at the par values) plus N(0, dm_error)
+    noise drawn after the timing jitter.
     ``device`` is where the inversion's residual sweeps run."""
     rng = np.random.default_rng(seed)
     model = get_model(par)
@@ -176,5 +247,44 @@ def make_test_pulsar(par: str, ntoa: int = 64, start_mjd: float = 54000.0,
         mjd_int, sec = carry_days(
             mjd_int, sec + rng.normal(0.0, jitter_us * 1e-6, ntoa)
         )
-    toas = _table(mjd_int, sec, freq, err, toa_flags)
-    return model, _with_geometry(toas, model, orbit, start_mjd)
+    toas = _with_geometry(_table(mjd_int, sec, freq, err, toa_flags),
+                          model, orbit, start_mjd)
+    if dm_error is not None:
+        cm = model.compile(toas, device=device)
+        dm = cm.dm_model(cm.x0()).cpu().numpy()
+        dm = dm + rng.normal(0.0, dm_error, ntoa)
+        for f, v in zip(toa_flags, dm):
+            f["pp_dm"] = repr(float(v))
+            f["pp_dme"] = repr(float(dm_error))
+    return model, toas
+
+
+def make_population(par: str, npsr: int, ntoa: int = 64, seed: int = 0,
+                    spread: float = 1e-9, **make_test_pulsar_kw):
+    """``npsr`` variants of one composition sharing one simulated TOA
+    set: the base pulsar of :func:`make_test_pulsar`, then copies of its
+    model whose free float and double-double parameters are moved by
+    ``spread`` relative draws (absolute for zero values) from
+    ``default_rng(seed + 0x5EED)``; epochs and pair parameters stay.
+    Returns ``(models, toas)``, ``models[0]`` the base model.  The
+    reference returns par texts; the port writes no par files yet
+    (ROADMAP A11), so it returns the models."""
+    if npsr < 1:
+        raise ValueError(f"make_population needs npsr >= 1, got {npsr}")
+    model, toas = make_test_pulsar(par, ntoa=ntoa, seed=seed,
+                                   **make_test_pulsar_kw)
+    rng = np.random.default_rng(seed + 0x5EED)
+    models = [model]
+    for _ in range(1, npsr):
+        m = get_model(par)
+        for name in m.free_params:
+            p = m.params[name]
+            ref = p.internal()
+            if isinstance(ref, HostDD):
+                scale = abs(float(ref.hi)) or 1.0
+                p.set_internal(ref + spread * scale * rng.standard_normal())
+            elif isinstance(ref, float):
+                scale = abs(ref) or 1.0
+                p.set_internal(ref + spread * scale * rng.standard_normal())
+        models.append(m)
+    return models, toas

@@ -16,6 +16,10 @@ Counterpart of ``pint_tpu/toas/bundle.py``.  Host data arrives as a TOA
                           columns (mask selections, noise bases)
   tzr                     optional one-row table of the same layout: the
                           TZR arrival of a model with an AbsPhase anchor
+  dm_meas, dm_err         optional (n,) wideband DM measurements and their
+                          errors (pc cm^-3); without them, taken from the
+                          ``pp_dm`` / ``pp_dme`` flags when every TOA
+                          carries a ``pp_dm`` (:func:`is_wideband`)
 
 and :func:`make_bundle` moves it to the device once.  Absolute epochs stay
 an exact day plus DD seconds, so kernels form dt against model epochs in
@@ -47,6 +51,9 @@ class TOABundle(NamedTuple):
     masks: dict
     # the one-row bundle of the model's TZR arrival (AbsPhase), or None
     tzr: Optional["TOABundle"] = None
+    # wideband DM measurements and errors (pc cm^-3); None for narrowband
+    dm_meas: Optional[torch.Tensor] = None
+    dm_err: Optional[torch.Tensor] = None
 
     @property
     def ntoa(self) -> int:
@@ -57,16 +64,61 @@ class TOABundle(NamedTuple):
         return self.tdb_day.device
 
     def dt_seconds(self, epoch_day, epoch_sec) -> DD:
-        """(t_tdb - epoch) in DD seconds.  The day-difference product is
-        exact in f64 for any realistic span."""
-        ddays = self.tdb_day - float(epoch_day)
+        """(t_tdb - epoch) in DD seconds.  ``epoch_day`` is the exact
+        day number, a host number or an f64 tensor (a model's reference
+        epochs are device scalars, so a PTA batch can give each pulsar
+        its own); both give the same f64 difference.  The day-difference
+        product is exact in f64 for any realistic span."""
+        if not isinstance(epoch_day, torch.Tensor):
+            epoch_day = float(epoch_day)
+        ddays = self.tdb_day - epoch_day
         big = DD.from_prod(ddays, 86400.0)
         return big + (self.tdb_sec - epoch_sec)
+
+
+def is_wideband(toas) -> bool:
+    """Whether every TOA of a host TOA table carries a wideband DM
+    measurement: a ``dm_meas`` column without NaN, or a ``pp_dm`` flag
+    on every TOA (the reference's ``TOAs.is_wideband``).  On a bundle:
+    whether it holds DM measurements."""
+    if isinstance(toas, TOABundle):
+        return toas.dm_meas is not None
+    if toas.get("dm_meas") is not None:
+        dm = np.asarray(toas["dm_meas"], np.float64)
+        return dm.size > 0 and not np.isnan(dm).any()
+    flags = toas.get("flags")
+    return bool(flags) and all("pp_dm" in f for f in flags)
+
+
+def get_dm_measurements(toas):
+    """(dm, dm_err) of a host TOA table, pc cm^-3: its ``dm_meas`` /
+    ``dm_err`` columns, else its ``pp_dm`` / ``pp_dme`` flags, NaN where
+    a TOA has none.  On a bundle, its two tensors as numpy arrays."""
+    if isinstance(toas, TOABundle):
+        return tuple(
+            np.full(toas.ntoa, np.nan) if v is None
+            else v.detach().cpu().numpy() for v in (toas.dm_meas, toas.dm_err))
+    n = len(toas["freq_mhz"])
+    if toas.get("dm_meas") is not None:
+        dme = toas.get("dm_err")
+        return (np.asarray(toas["dm_meas"], np.float64),
+                np.full(n, np.nan) if dme is None
+                else np.asarray(dme, np.float64))
+    flags = toas.get("flags") or [{}] * n
+    return tuple(
+        np.array([float(f.get(key, np.nan)) for f in flags])
+        for key in ("pp_dm", "pp_dme"))
 
 
 def make_bundle(toas, masks, device) -> TOABundle:
     """Host TOA table (+ mask/basis columns) -> device bundle."""
     n = len(toas["freq_mhz"])
+    dm_meas, dm_err = (get_dm_measurements(toas) if is_wideband(toas)
+                       else (None, None))
+
+    def opt(v):
+        return None if v is None else torch.as_tensor(
+            np.asarray(v, np.float64), dtype=F64, device=device)
 
     def col(key, shape=None, fill=0.0):
         v = toas.get(key)
@@ -95,6 +147,8 @@ def make_bundle(toas, masks, device) -> TOABundle:
                                device=device)
             for k, v in masks.items()
         },
+        dm_meas=opt(dm_meas),
+        dm_err=opt(dm_err),
     )
 
 

@@ -86,7 +86,8 @@ extern "C" int fused_gram_part(const void* T, int t_is_f64, const double* A,
                                const double* w, int n, int k, int p1,
                                int q_pad, int nb, int threads,
                                double* partial, int mode, void* stream) {
-  if (!check_shape(T, A, w, n, k, p1, q_pad, nb, threads))
+  if (!check_shape(T, A, w, n, k, p1, q_pad, nb, threads, 1,
+                   t_is_f64 ? 8 : 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return t_is_f64 ? launch_mode<double>(T, A, w, n, k, p1, nb, partial,

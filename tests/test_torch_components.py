@@ -461,19 +461,14 @@ def test_simulated_tzr_row_uses_data_geometry():
 @pytest.mark.parametrize("stem", [f"golden{i}" for i in range(1, 24)
                                   if i != 4])
 def test_get_model_accepts_every_narrowband_line(stem):
-    """Every par line of goldens 1-3 and 5-23 is ported but golden17's
-    DMJUMP, DMEFAC and DMEQUAD, which raise naming ROADMAP A7."""
+    """Every par line of goldens 1-3 and 5-23 is ported, golden17's
+    wideband DMJUMP, DMEFAC and DMEQUAD included."""
     with warnings.catch_warnings():
         warnings.simplefilter("error")
+        model = get_model(_par(stem))
+        assert model.unrecognized == {}
         if stem == "golden17":
-            with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-                get_model(_par(stem))
-            text = "\n".join(ln for ln in _par(stem).splitlines()
-                             if not ln.startswith(("DMJUMP", "DMEFAC",
-                                                   "DMEQUAD")))
-            assert get_model(text).unrecognized == {}
-        else:
-            assert get_model(_par(stem)).unrecognized == {}
+            assert {"DMJump", "ScaleDmError"} <= set(model.components)
 
 
 #: the card's sets: par texts simulated by the port (the card has no JAX)

@@ -30,6 +30,7 @@ from pint_tpu_torch.exceptions import (  # noqa: E402
     CorrelatedErrors,
     GuardTripWarning,
     InvalidModelParameters,
+    PintTpuError,
 )
 from pint_tpu_torch.fitting import (  # noqa: E402
     DownhillGLSFitter,
@@ -436,11 +437,12 @@ def test_auto_fitter_selection(par, downhill, cls):
 
 
 def test_auto_fitter_refuses_wideband_and_full_cov():
-    """Wideband TOAs (every TOA flagged with pp_dm) name ROADMAP A7; the
+    """Wideband TOAs (every TOA flagged with pp_dm) go to the wideband
+    fitters, which refuse them without pp_dme errors; the
     dense-covariance downhill step names A8."""
     model, toas = _white()
     wide = dict(toas, flags=[dict(f, pp_dm="3.1") for f in toas["flags"]])
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(PintTpuError, match="pp_dme"):
         auto_fitter(wide, model, device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         DownhillGLSFitter(toas, get_model(PAR + RED), device="cpu",

@@ -471,8 +471,8 @@ def test_ladder_falls_to_f64_on_nan(ref, monkeypatch):
 def test_ladder_exhausted_when_every_rung_fails(monkeypatch):
     """Both rungs NaN: LadderExhausted, with both rungs in its history."""
     model, toas = make_test_pulsar(FIT_PAR, ntoa=64, seed=6, device="cpu")
-    monkeypatch.setattr(gls, "gauss_newton_step",
-                        _poison_chi2(gls.gauss_newton_step))
+    # every rung's step is built by gls.step_from (GLSFitter._gn_step)
+    monkeypatch.setattr(gls, "step_from", _poison_chi2(gls.step_from))
     f = GLSFitter(toas, model, device="cpu", fused=True)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", GuardTripWarning)

@@ -190,18 +190,31 @@ def test_state_round_trips_reference_values(ref):
 
 
 @pytest.mark.parametrize("line, exc, match", [
-    ("DMJUMP -f L-wide 0.0003 1", NotImplementedError, "ROADMAP A7"),
-    ("DMEFAC -f L-wide 1.2", NotImplementedError, "ROADMAP A7"),
-    ("DMEQUAD -f L-wide 0.0001", NotImplementedError, "ROADMAP A7"),
+    # the wideband lines build since ROADMAP A7 landed: their case ids
+    # are the ids of the refusals they replace
+    pytest.param("DMJUMP -f L-wide 0.0003 1", None, "DMJump",
+                 id="DMJUMP -f L-wide 0.0003 1-NotImplementedError-"
+                    "ROADMAP A7"),
+    pytest.param("DMEFAC -f L-wide 1.2", None, "ScaleDmError",
+                 id="DMEFAC -f L-wide 1.2-NotImplementedError-ROADMAP A7"),
+    pytest.param("DMEQUAD -f L-wide 0.0001", None, "ScaleDmError",
+                 id="DMEQUAD -f L-wide 0.0001-NotImplementedError-"
+                    "ROADMAP A7"),
     ("NOTAPARAM 1.0", UnknownParameterWarning,
      r"unrecognized par-file parameters \['NOTAPARAM'\]"),
 ])
 def test_get_model_rejects_unported_lines(line, exc, match):
-    """The wideband-only lines raise naming ROADMAP A7; a line no
-    component accepts gives the reference builder's
-    UnknownParameterWarning (raised here under an error filter)."""
+    """A line no component accepts gives the reference builder's
+    UnknownParameterWarning (raised here under an error filter); the
+    wideband DMJUMP, DMEFAC and DMEQUAD lines build their component
+    (``match`` names it)."""
     with warnings.catch_warnings():
         warnings.simplefilter("error", UnknownParameterWarning)
+        if exc is None:
+            model = get_model(BENCH_PAR + line + "\n")
+            assert match in model.components
+            assert model.unrecognized == {}
+            return
         with pytest.raises(exc, match=match):
             get_model(BENCH_PAR + line + "\n")
 

@@ -11,7 +11,8 @@ every array it produced into an ``.npz`` that the test then reads.
 Reference scripts fill a dict ``OUT`` (name -> array or JSON-able value)
 and may call ``export_state(cm, prefix)`` to carry a CompiledModel's
 inputs across in the format of ``pint_tpu_torch.convert``, its TZR
-bundle (``cm.tzr_bundle``) included under ``<prefix>/tzr/``.
+bundle (``cm.tzr_bundle``) included under ``<prefix>/tzr/`` and its
+wideband DM measurements as the ``dm_meas`` and ``dm_err`` columns.
 """
 
 from __future__ import annotations
@@ -105,6 +106,8 @@ def _export_bundle(b, prefix):
         obs_sun_pos_ls=b.obs_sun_pos_ls, pulse_number=b.pulse_number,
         padd=b.padd,
     )
+    if getattr(b, "dm_meas", None) is not None:
+        cols.update(dm_meas=b.dm_meas, dm_err=b.dm_err)
     for k, v in cols.items():
         OUT[f"{{prefix}}/bundle/{{k}}"] = np.asarray(v)
     for k, v in b.masks.items():
