@@ -47,7 +47,7 @@ Phases, each of which raises on failure (exit code != 0):
    most 16 identity columns equals ``basis32``'s columns, at the bench
    shape and the odd shapes (the basis generator ``csrc/fourier_basis.cuh``
    is shared, so this holds ``fourier_gram``'s basis too);
-5. timings: CUDA events (median of 30 windows of 20 back-to-back calls,
+5. timings: CUDA events (median of 20 windows of 20 back-to-back calls,
    after warm-up) and torch.profiler device time of each kernel, of its
    plain version and of its one-call library yardstick (for
    ``fourier_apply`` and its yardstick also CUDA events over 20 calls
@@ -108,7 +108,8 @@ Phases, each of which raises on failure (exit code != 0):
    pulsar does not carry: glitch, WAVE and IFUNC (BT), ChromaticCM and
    WaveX / DMWaveX / CMWaveX, SWX and piecewise spindown (FD, FDJUMP),
    and bench.py's pulsar with the troposphere, its geometry columns
-   drawn from the seed.
+   drawn from the seed, each one's GLS step on the card also captured
+   as a step program and bitwise equal to its eager step.
 
 9. wideband: the wideband MSP (``simulation.msp_wideband_par``: the
    binary MSP plus a free DMJUMP, DMEFAC and DMEQUAD; 169 design columns
@@ -136,6 +137,28 @@ Phases, each of which raises on failure (exit code != 0):
    of scale of its own single launch, and timed beside its bound and
    one batched f64 GEMM (``torch.bmm``) of the same Y.
 
+Every fit above runs its steps as replays of step programs
+(``runtime/graphs.py``: CUDA graphs captured once, after one eager
+warm-up call), and each check says so: a GLSFitter, WLSFitter or
+WidebandTOAFitter fit replayed its step program once a step, a fused
+downhill fit its iteration program once an iteration and its proposal
+program once, the PTA fit its batched step ``maxiter + 1`` times, each
+program captured once, nothing left cached after the fit, and each
+kernel launched once a replay plus once in each capture's warm-up.  The
+graph checks (PR 11) hold each captured function bitwise equal to the
+same function run eagerly from the same inputs, twice, and time it:
+bench.py's pulsar's mixed, f64 and fourier steps (phase 5), the binary
+MSP's mixed and f64 steps (6), one downhill GLS iteration on bench.py's
+pulsar and one downhill WLS (QR) iteration on the white MSP (7), the
+full-width pulsar's mixed step (8), the wideband MSP's mixed step (9) and
+the PTA batch's mixed step (10).  Each prints the graphed call's
+CUDA-event time (median of 20) and host time, the eager call's host time
+and its busy share (the profiler's device time over the host time) from
+the same run, the capture time, the graphs' count (an f64 step splits at
+``torch.linalg.eigh``, which checks its result on the host) and the
+bytes the capture reserved; ``torch.cuda.memory_reserved`` is printed
+after each phase from 2 on.
+
 The last three lines are the kernels JSON (each kernel at the binary
 MSP's shapes, with its launches in the MSP's fits, and under ``bench``
 the same numbers at bench.py's pulsar; ``fused_gram_joint`` also with
@@ -149,6 +172,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -174,6 +198,7 @@ from pint_tpu_torch.fitting import (  # noqa: E402
 from pint_tpu_torch.fitting.gls import (  # noqa: E402
     GLSFitter,
     _column_norms,
+    default_accel_mode,
     gauss_newton_step,
     gls_step_woodbury,
     gls_step_woodbury_fourier,
@@ -192,6 +217,7 @@ from pint_tpu_torch.models.builder import get_model  # noqa: E402
 from pint_tpu_torch.ops import fourier, fused_gram  # noqa: E402
 from pint_tpu_torch.ops._cuda_build import build_libraries  # noqa: E402
 from pint_tpu_torch.parallel.pta import PTABatch  # noqa: E402
+from pint_tpu_torch.runtime import graphs  # noqa: E402
 from pint_tpu_torch.simulation import (  # noqa: E402
     MSP_FREQS,
     make_test_pulsar,
@@ -258,6 +284,10 @@ KERNELS = {
 #: the libraries to build: every kernel's, and fused_gram_joint's wide
 #: path (csrc/fused_gram_wide.cu, launched by the same wrapper)
 LIBRARIES = [*KERNELS, "fused_gram_wide"]
+#: the graph checks' results by path, and memory_reserved after each phase
+GRAPHS: dict = {}
+MEMORY: dict = {}
+T_START = time.perf_counter()
 
 
 def log(*a):
@@ -275,7 +305,7 @@ def rel(a, b):
     return float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(b)))
 
 
-def cuda_ms(fn, reps=30, warm=3, batch=20):
+def cuda_ms(fn, reps=20, warm=3, batch=20):
     """Median over ``reps`` of CUDA-event time per call, each measured over
     ``batch`` back-to-back calls (so the card's queue stays full)."""
     for _ in range(warm):
@@ -293,7 +323,7 @@ def cuda_ms(fn, reps=30, warm=3, batch=20):
     return statistics.median(ts)
 
 
-def device_ms(fn, calls=20, tries=3):
+def device_ms(fn, calls=20, tries=3, warm=True):
     """Device time per call from torch.profiler: the summed durations of
     the kernels ``fn`` launches, without host gaps.  Also per kernel.  On
     the card the profiler drops events of a window: a count of 19 where
@@ -304,10 +334,12 @@ def device_ms(fn, calls=20, tries=3):
     calls rounded up (the profiler drops events, it adds none); a profile
     that recorded no kernel, or fewer than half the events of whole
     launches a call, is taken again, and after ``tries`` such profiles
-    the time is None."""
+    the time is None.  ``warm`` calls ``fn`` once first (False where it
+    has just run)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -415,6 +447,69 @@ def basis_check(t, f):
     return t.shape[0], f.shape[0]
 
 
+def graph_equal(label, fn, args):
+    """``fn`` as a step program against ``fn`` run eagerly from the same
+    inputs: both replays bitwise equal to the eager result.  -> the
+    program."""
+    eager = graphs.flatten(fn(*args))[0]
+    prog = graphs.StepProgram(fn, args[0].device)
+    first = graphs.flatten(prog(*args))[0]
+    again = graphs.flatten(prog(*args))[0]
+    torch.cuda.synchronize()
+    check(len(eager) == len(first) and all(
+        torch.equal(e, g) and torch.equal(g, g2)
+        for e, g, g2 in zip(eager, first, again)),
+        f"{label}: the graphed step differs from the eager step")
+    return prog
+
+
+def graph_check(label, fn, args, eager_ms):
+    """``graph_equal``, then the graphed call timed (CUDA events, median
+    of 20, and the host clock, median of 3) beside the eager call's host
+    time ``eager_ms`` (measured by the caller in this run) and busy share
+    (profiler device time over host time); records the capture time, the
+    graphs' count and the bytes the capture reserved."""
+    prog = graph_equal(label, fn, args)
+    out = dict(bitwise=True, graphs=len(prog.segments),
+               capture_s=prog.capture_s, pool_reserved=prog.pool_reserved,
+               eager_host_ms=eager_ms)
+    out["eager_device_ms"], _ = device_ms(lambda: fn(*args), calls=1,
+                                          warm=False)
+    out["graph_ms"] = cuda_ms(lambda: prog(*args), reps=20, warm=1, batch=1)
+    out["graph_host_ms"] = host_ms(lambda: prog(*args), reps=3, warm=0)
+    if out["eager_device_ms"] is not None:
+        out["busy_share"] = out["eager_device_ms"] / out["eager_host_ms"]
+        out["graph_busy_share"] = (out["eager_device_ms"]
+                                   / out["graph_host_ms"])
+    log(f"graph {label}: {out}")
+    GRAPHS[label] = out
+    return out
+
+
+def phase_memory(phase):
+    """torch.cuda.memory_reserved after a phase, its garbage collected
+    and the allocator's cache emptied (the pools of finished programs
+    must not pile up), and the script's seconds so far."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    MEMORY[phase] = dict(reserved=torch.cuda.memory_reserved(),
+                         allocated=torch.cuda.memory_allocated(),
+                         elapsed_s=time.perf_counter() - T_START)
+    log(f"memory after phase {phase}: {MEMORY[phase]}")
+
+
+def programs_ran(label, cache, replays, captures):
+    """A fit's step programs: ``replays`` replays, ``captures`` captures,
+    nothing left cached."""
+    got = dict(replays=cache.replays, captures=cache.captures,
+               cached=len(cache), capture_s=cache.capture_s)
+    check(got["replays"] == replays and got["captures"] == captures
+          and got["cached"] == 0,
+          f"{label}: step programs {got}, expected {replays} replays and "
+          f"{captures} captures")
+    return got
+
+
 def profile_step(cm, x, mode):
     """One step under torch.profiler: kernels launched, device time summed
     over them, wall time, and the operators that take the device time."""
@@ -466,10 +561,12 @@ def drive(path, make_fitter, label="bench"):
     torch.cuda.synchronize()
     launches = read_counts()
     rep = fitter.guard_report
+    progs = programs_ran(f"{label} {path} fit", fitter.cm.programs,
+                         fitter.steps_taken, 1)
     log(f"{label} {path} fit: mode={fitter.mode} rung={rep.rung} "
         f"fell_back={rep.fell_back} steps={fitter.steps_taken} "
         f"chi2={chi2!r} converged={fitter.converged} launches={launches} "
-        f"wall={time.perf_counter() - t0:.2f} s "
+        f"programs={progs} wall={time.perf_counter() - t0:.2f} s "
         f"max_memory_allocated={torch.cuda.max_memory_allocated()} B")
     check(fitter.mode == path, f"the {path} fit ran in mode {fitter.mode}")
     check(rep.rung == f"cuda-{path}" and not rep.fell_back,
@@ -486,7 +583,9 @@ def drive(path, make_fitter, label="bench"):
               and p.uncertainty > 0, f"{n}: non-finite value/uncertainty")
     for n, (_, _, _, kpath) in KERNELS.items():
         if kpath == path:
-            check(launches[n] >= fitter.steps_taken > 0,
+            # as often in each replay as in the capture's warm-up call
+            steps = fitter.steps_taken + 1
+            check(launches[n] >= steps > 1 and launches[n] % steps == 0,
                   f"{n} launched {launches[n]} times in "
                   f"{fitter.steps_taken} steps")
         else:
@@ -737,11 +836,15 @@ def msp_phases(dev, rng):
         log(f"msp {name} at (n, k, p) = {shapes[name]} (ms, median): "
             f"{times[name]}, bound {bounds[name]}")
     steps = {mode: host_ms(lambda m=mode: gauss_newton_step(cm, x, m),
-                           reps=10)
+                           reps=5, warm=1)
              for mode in ("mixed", "f64", "fourier")}
     log(f"msp step (ms, median, host clock to sync): {steps}; TOAs/s "
         f"{ {m: NTOA / (v / 1e3) for m, v in steps.items()} }")
     profile_step(cm, x, "mixed")
+    for mode in ("mixed", "f64"):
+        graph_check(f"msp {mode} step",
+                    lambda x_, m=mode: gauss_newton_step(cm, x_, m), (x,),
+                    steps[mode])
     return dict(launches=launches, errs=errs, times=times, bounds=bounds,
                 shapes=shapes, gates=gates, steps=steps, r4=r4, par=par,
                 toas=toas, gls=mixed)
@@ -851,7 +954,7 @@ def value_gaps(model, other, names, sig):
     return out
 
 
-def downhill_fit(label, make, cls, wide=None):
+def downhill_fit(label, make, cls, wide=None, graph=False):
     """One downhill fit through the default entry point, its launch counts
     at 0 just before it and read just after: it must be a ``cls``, be
     served by the native rung and end finite; ``wide`` True (False) says
@@ -860,7 +963,8 @@ def downhill_fit(label, make, cls, wide=None):
     ``converged``, chi2 from start to end, the last noise floor, the host
     time and the peak allocation; then times one proposal and one chi2
     ladder at the fitted state (host clock and device time) and the
-    ladder's peak allocation.  -> (fitter, summary)."""
+    ladder's peak allocation; ``graph`` adds the graph check of one
+    iteration at the fitted state.  -> (fitter, summary)."""
     f = make()
     check(type(f) is cls, f"{label}: auto_fitter gave {type(f).__name__}")
     chi2_0 = float(f._make_chi2()(f.cm.x0()))
@@ -875,6 +979,9 @@ def downhill_fit(label, make, cls, wide=None):
                 wall_s=time.perf_counter() - t0, launches=read_counts(),
                 max_memory_allocated=torch.cuda.max_memory_allocated())
     rep = f.guard_report
+    # an iteration program replayed once an iteration, a proposal program
+    # once for the final covariance
+    info["programs"] = programs_ran(label, f.cm.programs, f.niter + 1, 2)
     log(f"{label} {type(f).__name__}: rung={rep.rung} {info}")
     check(rep.rung == "native" and not rep.fell_back,
           f"{label}: served by rung {rep.rung}: {rep.history}")
@@ -893,10 +1000,12 @@ def downhill_fit(label, make, cls, wide=None):
     ladder, lams = f._make_ladder(f._make_chi2(), _ladder_lams(1e-3)[2])
     dx = proposal(x)[0]
     parts = dict(lambdas=len(lams),
-                 proposal_ms=host_ms(lambda: proposal(x), reps=5, warm=1),
-                 ladder_ms=host_ms(lambda: ladder(x, dx), reps=5, warm=1))
-    parts["proposal_device_ms"], _ = device_ms(lambda: proposal(x), calls=3)
-    parts["ladder_device_ms"], _ = device_ms(lambda: ladder(x, dx), calls=3)
+                 proposal_ms=host_ms(lambda: proposal(x), reps=3, warm=1),
+                 ladder_ms=host_ms(lambda: ladder(x, dx), reps=3, warm=1))
+    parts["proposal_device_ms"], _ = device_ms(lambda: proposal(x), calls=1,
+                                               warm=False)
+    parts["ladder_device_ms"], _ = device_ms(lambda: ladder(x, dx), calls=1,
+                                             warm=False)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -906,6 +1015,12 @@ def downhill_fit(label, make, cls, wide=None):
     info["iteration"] = parts
     log(f"{label}: one iteration at the fitted state (ms, median; device "
         f"ms from the profiler): {parts}")
+    if graph:
+        it, _, chi2_fn = f._make_iteration(False, 1e-2, 1e-2, 1e-3)
+        false = torch.zeros((), dtype=torch.bool, device=x.device)
+        args = (x, chi2_fn(x), false, false)
+        graph_check(f"{label} {type(f).__name__} iteration", it, args,
+                    host_ms(lambda: it(*args), reps=3, warm=1))
     return f, info
 
 
@@ -945,13 +1060,14 @@ def white_msp(dev):
     r, M, Nd, _, _ = step_inputs(cm, cm.x0())
     sw = torch.sqrt(1.0 / Nd)  # as _wls_step weights the design
     A = (M / _column_norms(M * sw[:, None])[None, :]) * sw[:, None]
-    gate = dict(zip(("rank_ok", "diag_ratio", "cond_est"),
-                    _qr_gate(torch.linalg.qr(A)[1])))
+    ok, ratio, cond = _qr_gate(torch.linalg.qr(A)[1])
+    gate = dict(rank_ok=bool(ok), diag_ratio=float(ratio),
+                cond_est=float(cond))
     log(f"white msp: design {tuple(M.shape)}, QR gate at the par values "
         f"{gate} ({'qr' if gate['rank_ok'] else 'routed to gram'})")
     del cm, r, M, Nd, A
     f, info = downhill_fit("white msp", lambda: auto_fitter(toas, model),
-                           DownhillWLSFitter)
+                           DownhillWLSFitter, graph=True)
     check(f.converged, "white msp: the downhill WLS fit did not converge")
     w = auto_fitter(toas, get_model(par), downhill=False)
     check(type(w) is WLSFitter, f"white msp: got {type(w).__name__}")
@@ -960,7 +1076,9 @@ def white_msp(dev):
     torch.cuda.synchronize()
     info["wls"] = dict(chi2=w_chi2, converged=w.converged,
                        wall_s=time.perf_counter() - t0,
-                       rung=w.guard_report.rung)
+                       rung=w.guard_report.rung, qr_gate=w.qr_gate,
+                       programs=programs_ran("white msp WLSFitter",
+                                             w.cm.programs, w.steps_taken, 1))
     check(w.guard_report.rung == "cuda-qr", f"WLS rung {w.guard_report.rung}")
     sig = np.sqrt(np.diag(w.parameter_covariance_matrix))
     gaps = value_gaps(f.model, w.model, f.cm.free_names, sig)
@@ -1006,7 +1124,7 @@ def entry_point_phase(bench_toas, msp):
         return auto_fitter(msp["toas"], get_model(msp["par"]))
 
     _, out["bench"] = downhill_fit("bench", bench, DownhillGLSFitter,
-                                   wide=False)
+                                   wide=False, graph=True)
     out["bench"]["host_loop"] = host_loop_parity("bench", bench, out["bench"])
     f, out["msp"] = downhill_fit("msp", binary, DownhillGLSFitter, wide=True)
     check(f.converged, "msp: the downhill GLS fit did not converge")
@@ -1059,7 +1177,9 @@ def components_card_vs_cpu(rng, ntoa=2048):
     """Each of ``component_pars()`` on a pulsar simulated by the port (the orbit
     inside its phases, the Sun at the barycentre for SWX), the card
     against the CPU: residuals within 1e-11 s, every design column within
-    1e-9 of its own max.  -> label -> (residual gap s, worst column)."""
+    1e-9 of its own max; and on the card its GLS step (the card's mode)
+    captured as a step program, bitwise equal to the eager step.
+    -> label -> (residual gap s, worst column)."""
     out = {}
     for label, par in component_pars().items():
         m, t = make_test_pulsar(par, ntoa=ntoa, device="cpu", **MSP_SIM)
@@ -1070,6 +1190,12 @@ def components_card_vs_cpu(rng, ntoa=2048):
             c = m.compile(t, device=d)
             xs = c.x0()
             res[d] = (c.time_residuals(xs).cpu(), c.design_matrix(xs).cpu())
+            if d == "cuda":
+                mode = default_accel_mode(c)
+                graph_equal(f"{label} {mode} step",
+                            lambda x_, c=c, m=mode: gauss_newton_step(c, x_,
+                                                                      m),
+                            (xs,))
         dres = float(torch.max(torch.abs(res["cuda"][0] - res["cpu"][0])))
         scale = torch.clamp_min(torch.max(torch.abs(res["cpu"][1]), dim=0)
                                 .values, 1e-300)
@@ -1083,7 +1209,8 @@ def components_card_vs_cpu(rng, ntoa=2048):
                   "the troposphere delay is zero at some TOA")
         log(f"{label}: card vs cpu at {ntoa} TOAs: residuals {dres!r} s, "
             f"worst design column {dcol!r} of its max "
-            f"({res['cpu'][1].shape[1]} columns)")
+            f"({res['cpu'][1].shape[1]} columns); the graphed step bitwise "
+            "equal to eager")
         check(dres <= 1e-11, f"{label}: card residuals off by {dres} s")
         check(dcol <= 1e-9, f"{label}: card design column off by {dcol}")
         out[label] = dict(resid_s=dres, design_col_rel=dcol)
@@ -1153,6 +1280,9 @@ def full_width_phase(dev, rng):
                            reps=5, warm=1)
              for mode in ("mixed", "f64")}
     log(f"full step (ms, median, host clock to sync): {steps}")
+    graph_check("full mixed step",
+                lambda x_: gauss_newton_step(cm, x_, "mixed"), (x,),
+                steps["mixed"])
     comps = components_card_vs_cpu(rng)
     entry = dict(
         shape=[n, k, p1],
@@ -1251,6 +1381,9 @@ def wideband_phase(dev):
     steps = {mode: host_ms(lambda m=mode: toa_fit._gn_step(
         toa_fit.cm.x0(), m), reps=5, warm=1) for mode in ("mixed", "f64")}
     log(f"wideband step (ms, median, host clock to sync): {steps}")
+    graph_check("wideband mixed step",
+                lambda x_: toa_fit._gn_step(x_, "mixed"),
+                (toa_fit.cm.x0(),), steps["mixed"])
 
     # a 2048-TOA copy: the card against the CPU
     m2, t2 = make_test_pulsar(msp_wideband_par(MSP_SMALL["ndmx"], seed=0),
@@ -1316,14 +1449,24 @@ def pta_phase(dev, rng):
                launches=read_counts(),
                last_shape=fused_gram.fused_gram_joint_cuda.last_shape,
                max_memory_allocated=torch.cuda.max_memory_allocated(),
-               chi2_min=float(chi2.min()), chi2_max=float(chi2.max()))
+               chi2_min=float(chi2.min()), chi2_max=float(chi2.max()),
+               programs=dict(replays=batch.programs.replays,
+                             captures=batch.programs.captures,
+                             capture_s=batch.programs.capture_s,
+                             pool_reserved=batch.programs.pool_reserved))
     log(f"pta mixed fit(maxiter=3): {fit}")
     n_gram = fit["launches"]["fused_gram_joint"]
+    # the 4 batched steps are replays of one program, captured once after
+    # a warm-up call: one launch each, and one in the warm-up
+    check(fit["programs"]["replays"] == fit["steps"] == 4
+          and fit["programs"]["captures"] == 1,
+          f"pta: step programs {fit['programs']} in {fit['steps']} steps")
     check(n_gram == fit["launches"]["fused_gram_joint batched"]
-          == fit["steps"] == 4
+          == fit["steps"] + 1
           and fit["launches"]["fused_gram_joint wide"] == n_gram
           and fit["launches"]["fourier_gram"] == 0,
           f"pta: {fit['launches']} launches in {fit['steps']} batched steps")
+    batch.programs.clear()
     check(fit["last_shape"] == (PTA_NPSR, PTA_NMAX, 60, 119),
           f"pta: the batched launch had shape {fit['last_shape']}")
     check(bool(torch.all(torch.isfinite(chi2))) and bool(
@@ -1347,6 +1490,8 @@ def pta_phase(dev, rng):
     log(f"pta batched step (ms, median, host clock to sync): {step_ms}; "
         f"mixed step device time >= {step_dev_ms!r} ms over "
         f"{len(kernels)} recorded kernels")
+    graph_check(f"pta mixed step ({PTA_NPSR} pulsars)",
+                batch._step_fn("mixed"), (x0,), step_ms["mixed"])
     xm, cm_, (cvm, nm) = batch.fit_step(x0, mode="mixed")
     xf, cf_, (cvf, nf) = batch.fit_step(x0, mode="f64")
     worst = {}
@@ -1450,6 +1595,8 @@ def main():
                     fourier_apply=(mixed_launches["fourier_apply"]
                                    + four_launches["fourier_apply"]))
 
+    phase_memory(2)
+
     # 3. correctness: each accelerated step vs the f64 step from the same x
     cm, x = mixed.cm, mixed.cm.x0()
     args = step_inputs(cm, x)
@@ -1464,6 +1611,7 @@ def main():
 
     # ... and on a small pulsar, the card against the port on the CPU
     card_vs_cpu("bench", BENCH_PAR, 2048, {})
+    phase_memory(3)
 
     # 4. each kernel vs its plain version at the paths' shapes and odd ones
     rng = np.random.default_rng(1)
@@ -1531,6 +1679,8 @@ def main():
         f"n={ft.shape[0]} k={nh} p={pf}, apply m=8; basis bitwise equal to "
         f"basis32 at (n, k) = {basis_shapes}")
 
+    phase_memory(4)
+
     # 5. timings and bounds
     times = {}
     Ys = (torch.cat([T.float(), A.float()], dim=1)
@@ -1579,31 +1729,42 @@ def main():
     for name in KERNELS:
         log(f"{name} (ms, median): {times[name]}, bound {bounds[name]}")
     log(f"fourier_gram work: {fg_fma} f64 FMA, {nf * nh} sincos")
-    mixed_ms = host_ms(lambda: gauss_newton_step(cm, x, "mixed"), reps=20)
-    f64_ms = host_ms(lambda: gauss_newton_step(cm, x, "f64"), reps=20)
-    four_ms = host_ms(lambda: gauss_newton_step(fcm, fx, "fourier"), reps=20)
+    mixed_ms = host_ms(lambda: gauss_newton_step(cm, x, "mixed"), reps=10)
+    f64_ms = host_ms(lambda: gauss_newton_step(cm, x, "f64"), reps=10)
+    four_ms = host_ms(lambda: gauss_newton_step(fcm, fx, "fourier"), reps=10)
     log(f"step (ms, median, host clock to sync): mixed {mixed_ms!r}, "
         f"f64 {f64_ms!r}, fourier {four_ms!r}; TOAs/s mixed "
         f"{NTOA / (mixed_ms / 1e3)!r}, f64 {NTOA / (f64_ms / 1e3)!r}, "
         f"fourier {NTOA / (four_ms / 1e3)!r}")
     profile_step(cm, x, "mixed")
     profile_step(fcm, fx, "fourier")
+    for c_, mode, ms in ((cm, "mixed", mixed_ms), (cm, "f64", f64_ms),
+                         (fcm, "fourier", four_ms)):
+        graph_check(f"bench {mode} step",
+                    lambda x_, c=c_, m=mode: gauss_newton_step(c, x_, m),
+                    (c_.x0(),), ms)
+    phase_memory(5)
 
     # 6. the binary MSP at 1e5 TOAs: this slice's path and wide shapes
     msp = msp_phases(dev, rng)
+    phase_memory(6)
 
     # 7. the default entry point: auto_fitter -> the downhill fitters
     entry = entry_point_phase(toas, msp)
     del msp["toas"], msp["gls"]
+    phase_memory(7)
 
     # 8. the full-width pulsar (q = 350) and the remaining components
     full = full_width_phase(dev, rng)
+    phase_memory(8)
 
     # 9. wideband: the stacked [TOA; DM] fits at 2e5 rows
     wideband = wideband_phase(dev)
+    phase_memory(9)
 
     # 10. the PTA batch: 45 pulsars, one Gram launch a batched step
     pta = pta_phase(dev, rng)
+    phase_memory(10)
 
     # the kernels line: each kernel at the binary MSP's shapes (launches
     # from its fits), and under "bench" the same numbers at bench.py's
@@ -1659,6 +1820,8 @@ def main():
     rows[0]["full_width"] = full
     rows[0]["wideband"] = wideband
     rows[0]["pta"] = pta
+    rows[0]["graphs"] = GRAPHS
+    rows[0]["memory_after_phase"] = MEMORY
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

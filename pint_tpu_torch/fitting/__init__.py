@@ -1,8 +1,9 @@
 """Fitters: WLS, GLS, their downhill variants, the wideband fitters and
 the scipy minimizers.
 
-Counterpart of ``pint_tpu/fitting/__init__.py``.  Every fitter takes
-``(toas, model)`` and ``device=None``, meaning the CUDA card.
+Counterpart of ``pint_tpu/fitting/__init__.py``.  Every fitter takes the
+reference's positional parameters (``toas, model`` first) and a
+keyword-only ``device=None``, meaning the CUDA card.
 """
 
 from pint_tpu_torch.fitting.downhill import (  # noqa: F401

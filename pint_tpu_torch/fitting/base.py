@@ -42,7 +42,9 @@ def design_with_offset(cm, x):
 
 
 def run_fit_loop(live_step, x0, p, maxiter, tol_chi2, init_chi2=None):
-    """Iterate ``live_step(x) -> (x_new, (covn, norm), chi2, nbad)``.
+    """Iterate ``live_step(x) -> (x_new, (covn, norm), chi2, nbad)``, on
+    the card a replay of the step's program (``CompiledModel.program``),
+    whose outputs are copies the loop may keep across the next replay.
 
     Semantics of the reference's scan loop: each iteration takes the
     chi2 that ``live_step`` reports (GLS: the pre-step chi2 of the solve;
@@ -61,8 +63,9 @@ def run_fit_loop(live_step, x0, p, maxiter, tol_chi2, init_chi2=None):
     nbads = []
     for _ in range(maxiter):
         x_new, cov_new, chi2_t, nbad = live_step(x)
-        chi2 = float(chi2_t)  # one host sync per iteration
-        nbads.append(int(nbad))
+        # the one host read of an iteration: chi2 and nbad together
+        chi2, nb = torch.stack([chi2_t.to(F64), nbad.to(F64)]).tolist()
+        nbads.append(int(nb))
         if not math.isfinite(chi2):
             bad = True
             break
@@ -103,10 +106,20 @@ def device_noise_floor(lams, c):
                        torch.zeros_like(ss))
 
 
-class Fitter:
-    """Common base: compiled kernels + offset column + post-fit commit."""
+def no_full_cov(cls_name: str, full_cov: bool):
+    """Refuse ``full_cov=True``: the dense-covariance step is not ported."""
+    if full_cov:
+        raise NotImplementedError(
+            f"{cls_name}(full_cov=True) needs gls_step_full_cov, which is "
+            "not ported yet (ROADMAP A8)")
 
-    def __init__(self, toas, model, device=None):
+
+class Fitter:
+    """Common base: compiled kernels + offset column + post-fit commit.
+    Positional parameters are the reference's; ``device`` (None: the
+    CUDA card) is keyword-only."""
+
+    def __init__(self, toas, model, *, device=None):
         self.toas = toas
         self.model = model
         self.cm = model.compile(toas, device=device)

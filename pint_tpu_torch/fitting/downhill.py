@@ -40,6 +40,7 @@ from pint_tpu_torch.fitting.base import (
     Fitter,
     design_with_offset,
     device_noise_floor,
+    no_full_cov,
 )
 from pint_tpu_torch.fitting.gls import (
     default_accel_mode,
@@ -158,15 +159,13 @@ class DownhillFitter(Fitter):
         return 6.0 * float(np.sqrt(np.sum(resid**2) / (len(ls) - 2)))
 
     # -- the fused loop -------------------------------------------------
-    def _fused_loop(self, force_f64: bool, maxiter: int,
-                    required_chi2_decrease: float, max_chi2_increase: float,
-                    min_lambda: float, x0):
-        """The whole downhill trajectory with every decision on the
-        device; the host reads ``done`` once per iteration.  Hazards (a
-        non-finite proposal or baseline) freeze the state and set flags
-        that the ladder's validator turns into refusals.  Returns
-        (x, chi2, cov, conv, step_problem, pred, floor, bad_prop,
-        bad_base, nbads), ``nbads`` one entry per executed iteration."""
+    def _make_iteration(self, force_f64: bool, required_chi2_decrease: float,
+                        max_chi2_increase: float, min_lambda: float):
+        """One fused iteration as a function of tensors,
+        ``(x, chi2, bad_prop, bad_base) -> (x, chi2, conv, step_problem,
+        pred, floor, bad_prop, bad_base, done, nbad)``: the proposal, the
+        batched lambda ladder, the noise floor and the accept/stop/freeze
+        logic, with no host read.  -> (iteration, proposal, chi2_fn)."""
         # no-argument call on the native rung: the proposal maker is the
         # overridable surface
         proposal = (self._make_proposal(force_f64=True) if force_f64
@@ -176,6 +175,59 @@ class DownhillFitter(Fitter):
         nlam = len(lams)
         ladder, lams_t = self._make_ladder(chi2_fn, all_lams)
         probe_t = lams_t[nlam:]
+
+        def iteration(x, chi2c, badp, badb):
+            dx, _cov, nbad, pred = proposal(x)
+            prop_ok = torch.all(torch.isfinite(dx)) & torch.isfinite(pred)
+            c_all = ladder(x, dx)
+            base = c_all[-1]
+            base_ok = torch.isfinite(base)
+            floor = device_noise_floor(probe_t, c_all[nlam:])
+            c_tries = c_all[:nlam]
+            okm = torch.isfinite(c_tries) & (
+                c_tries < base + max_chi2_increase + floor)
+            # first True = the largest acceptable lambda (host order);
+            # gathered by a 1-element index, as a 0-d index is read on
+            # the host
+            idx = torch.argmax(okm.to(torch.int32)).reshape(1)
+            any_ok = torch.any(okm) & prop_ok & base_ok
+            c_new = c_tries.index_select(0, idx)[0]
+            tol = torch.clamp(floor, min=required_chi2_decrease)
+            small = torch.abs(base - c_new) < tol
+            hazard = ~prop_ok | ~base_ok
+            # no acceptable step: a large unrealized predicted decrease is
+            # a step problem, a sub-floor one is silent convergence
+            sp = ~any_ok & ~hazard & (pred > tol)
+            conv = torch.where(any_ok, small, ~sp & ~hazard)
+            done = ~any_ok | small
+            x = torch.where(any_ok, x + lams_t.index_select(0, idx) * dx, x)
+            chi2c = torch.where(any_ok, c_new,
+                                torch.where(hazard, chi2c, base))
+            return (x, chi2c, conv, sp, pred, floor, badp | ~prop_ok,
+                    badb | (prop_ok & ~base_ok), done, nbad)
+
+        return iteration, proposal, chi2_fn
+
+    def _fused_loop(self, force_f64: bool, maxiter: int,
+                    required_chi2_decrease: float, max_chi2_increase: float,
+                    min_lambda: float, x0):
+        """The whole downhill trajectory with every decision on the
+        device; the host reads ``done`` once per iteration.  An iteration
+        (``_make_iteration``) is one step program
+        (``CompiledModel.program``: replayed CUDA graphs on the card), the
+        final covariance a proposal-only one, each rung its own.  Hazards
+        (a non-finite proposal or baseline) freeze the state and set flags
+        that the ladder's validator turns into refusals.  Returns (x,
+        chi2, cov, conv, step_problem, pred, floor, bad_prop, bad_base,
+        nbads), ``nbads`` one entry per executed iteration."""
+        iteration, proposal, chi2_fn = self._make_iteration(
+            force_f64, required_chi2_decrease, max_chi2_increase, min_lambda)
+        shape = tuple(x0.shape)
+        step = self.cm.program(iteration, (
+            "downhill", force_f64, required_chi2_decrease,
+            max_chi2_increase, min_lambda, shape))
+        final = self.cm.program(proposal, ("downhill-proposal", force_f64,
+                                           shape))
         dev = self.device
         false = torch.zeros((), dtype=torch.bool, device=dev)
         zero = torch.zeros((), dtype=F64, device=dev)
@@ -191,39 +243,14 @@ class DownhillFitter(Fitter):
         pred_c, floor_c = zero, zero
         nbads = []
         for _ in range(maxiter):
-            dx, _cov, nbad, pred = proposal(x)
-            prop_ok = torch.all(torch.isfinite(dx)) & torch.isfinite(pred)
-            c_all = ladder(x, dx)
-            base = c_all[-1]
-            base_ok = torch.isfinite(base)
-            floor = device_noise_floor(probe_t, c_all[nlam:])
-            c_tries = c_all[:nlam]
-            okm = torch.isfinite(c_tries) & (
-                c_tries < base + max_chi2_increase + floor)
-            # first True = the largest acceptable lambda (host order)
-            idx = torch.argmax(okm.to(torch.int32))
-            any_ok = torch.any(okm) & prop_ok & base_ok
-            c_new = c_tries[idx]
-            tol = torch.clamp(floor, min=required_chi2_decrease)
-            small = torch.abs(base - c_new) < tol
-            hazard = ~prop_ok | ~base_ok
-            # no acceptable step: a large unrealized predicted decrease is
-            # a step problem, a sub-floor one is silent convergence
-            sp = ~any_ok & ~hazard & (pred > tol)
-            conv = torch.where(any_ok, small, ~sp & ~hazard)
-            done = ~any_ok | small
-            x = torch.where(any_ok, x + lams_t[idx] * dx, x)
-            chi2c = torch.where(any_ok, c_new,
-                                torch.where(hazard, chi2c, base))
-            pred_c, floor_c = pred, floor
-            badp = badp | ~prop_ok
-            badb = badb | (prop_ok & ~base_ok)
+            (x, chi2c, conv, sp, pred_c, floor_c, badp, badb, done,
+             nbad) = step(x, chi2c, badp, badb)
             nbads.append(nbad)
             if bool(done):  # the one host read of the iteration
                 break
         # covariance at the final accepted state (the loop's is one
         # Gauss-Newton step stale for x-dependent designs)
-        _, cov, _, _ = proposal(x)
+        _, cov, _, _ = final(x)
         return (x, chi2c, cov, conv, sp, pred_c, floor_c, badp, badb,
                 nbads)
 
@@ -447,7 +474,7 @@ class DownhillWLSFitter(DownhillFitter):
     """Downhill WLS: the proposal is ``_wls_step`` (QR on the card, SVD
     on the CPU); refuses a model with correlated noise."""
 
-    def __init__(self, toas, model, device=None):
+    def __init__(self, toas, model, *, device=None):
         super().__init__(toas, model, device=device)
         if self.cm.has_correlated_errors:
             raise CorrelatedErrors(model)
@@ -482,11 +509,8 @@ class DownhillGLSFitter(DownhillFitter):
     the implicit offset profiled out: chi2 - (1^T C^-1 r)^2 / (1^T C^-1 1).
     ``full_cov=True`` (the dense-covariance step) is not ported."""
 
-    def __init__(self, toas, model, device=None, full_cov: bool = False):
-        if full_cov:
-            raise NotImplementedError(
-                "DownhillGLSFitter(full_cov=True) needs gls_step_full_cov, "
-                "which is not ported yet (ROADMAP A8)")
+    def __init__(self, toas, model, full_cov: bool = False, *, device=None):
+        no_full_cov(type(self).__name__, full_cov)
         super().__init__(toas, model, device=device)
 
     def _noise(self, x):

@@ -34,12 +34,14 @@ from pint_tpu_torch.exceptions import PintTpuError
 from pint_tpu_torch.fitting.base import (
     Fitter,
     design_with_offset,
+    no_full_cov,
     noffset,
     run_fit_loop,
 )
 from pint_tpu_torch.ops import solve_policy
 from pint_tpu_torch.ops.ffgram import nan_cholesky
 from pint_tpu_torch.runtime.fallback import run_fit_ladder
+from pint_tpu_torch.runtime.graphs import host_call
 
 F32 = torch.float32
 F64 = torch.float64
@@ -64,8 +66,10 @@ def _column_norms(M):
 
 def _eigh_threshold_solve(A, b, threshold=None):
     """Min-norm solve of SPD A x = b with near-degenerate eigendirections
-    zeroed.  Returns (x, pinv(A), n_zeroed)."""
-    w, V = torch.linalg.eigh(A)
+    zeroed.  Returns (x, pinv(A), n_zeroed).  ``torch.linalg.eigh`` checks
+    its ``info`` on the host, so in a step program it is a split point
+    (``runtime/graphs.py::host_call``)."""
+    w, V = host_call(torch.linalg.eigh, A)
     if threshold is None:
         threshold = torch.finfo(F64).eps * A.shape[0]
     bad = w < threshold * torch.max(w)
@@ -290,11 +294,21 @@ class GLSFitter(Fitter):
     says why it is opt-in).  ``fit_toas`` runs the fit down the fallback
     ladder (``runtime/fallback.py``: native mode, then all-f64, on the
     same device; no CPU rung); ``self.guard_report`` records which rung
-    served the result and what tripped on the way down."""
+    served the result and what tripped on the way down.  ``full_cov=True``
+    (the dense-covariance step) is ROADMAP A8; with ``fused=True`` or
+    ``'mixed'`` it raises the reference's PintTpuError."""
 
-    def __init__(self, toas, model, device=None, fused="auto"):
+    def __init__(self, toas, model, full_cov: bool = False, fused="auto", *,
+                 device=None):
         if fused not in ("auto", "mixed", False, True):
             raise ValueError(f"unknown fused={fused!r}")
+        if full_cov and fused in (True, "mixed"):
+            raise PintTpuError(
+                f"fused={fused!r} and full_cov=True are mutually "
+                "exclusive (the fused/mixed paths are reduced-rank by "
+                "construction)"
+            )
+        no_full_cov(type(self).__name__, full_cov)
         super().__init__(toas, model, device=device)
         self.fused = fused
 
@@ -342,12 +356,15 @@ class GLSFitter(Fitter):
         p = len(self.cm.free_names) + self._noffset
 
         def run_loop(rung_mode):
-            # steps_taken counts the steps of the rung that serves
+            # one step program a rung; steps_taken counts the steps (on
+            # the card, its replays) of the rung that serves
+            step = self.cm.program(lambda x: self._gn_step(x, rung_mode),
+                                   ("gls", rung_mode, p))
             self.steps_taken = 0
 
             def live_step(x):
                 self.steps_taken += 1
-                return self._gn_step(x, rung_mode)
+                return step(x)
 
             return run_fit_loop(live_step, self.cm.x0(), p, maxiter,
                                 tol_chi2)

@@ -33,7 +33,7 @@ class MinimizeFitter(Fitter):
     ``torch.func.jacfwd`` of the chi2.  Refuses a model with correlated
     noise (its chi2 is the white one)."""
 
-    def __init__(self, toas, model, method: str = "Powell", device=None):
+    def __init__(self, toas, model, method: str = "Powell", *, device=None):
         super().__init__(toas, model, device=device)
         if self.cm.has_correlated_errors:
             raise CorrelatedErrors(model)
@@ -70,5 +70,5 @@ class MinimizeFitter(Fitter):
 class PowellFitter(MinimizeFitter):
     """The reference's name for ``MinimizeFitter(method='Powell')``."""
 
-    def __init__(self, toas, model, device=None):
+    def __init__(self, toas, model, *, device=None):
         super().__init__(toas, model, method="Powell", device=device)

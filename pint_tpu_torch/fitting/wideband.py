@@ -28,6 +28,7 @@ from torch.func import jacfwd
 
 from pint_tpu_torch.device import F64
 from pint_tpu_torch.exceptions import PintTpuError
+from pint_tpu_torch.fitting.base import no_full_cov
 from pint_tpu_torch.fitting.downhill import DownhillFitter
 from pint_tpu_torch.fitting.gls import (
     GLSFitter,
@@ -37,13 +38,6 @@ from pint_tpu_torch.fitting.gls import (
     make_cinv_mult,
 )
 from pint_tpu_torch.toas.bundle import get_dm_measurements, is_wideband
-
-
-def _no_full_cov(cls_name: str, full_cov: bool):
-    if full_cov:
-        raise NotImplementedError(
-            f"{cls_name}(full_cov=True) needs gls_step_full_cov, which is "
-            "not ported yet (ROADMAP A8)")
 
 
 class WidebandResiduals:
@@ -148,9 +142,8 @@ class WidebandTOAFitter(_WidebandKernels, GLSFitter):
     policy, ladder and modes ('auto' takes the mixed step on the card,
     whose joint Gram is the CUDA kernel over the 2n stacked rows)."""
 
-    def __init__(self, toas, model, device=None, full_cov: bool = False,
-                 fused="auto"):
-        _no_full_cov(type(self).__name__, full_cov)
+    def __init__(self, toas, model, full_cov: bool = False, fused="auto", *,
+                 device=None):
         _validate_wideband(toas)
         if fused is True:
             # the streaming kernel generates TOA-indexed basis rows; the
@@ -160,7 +153,7 @@ class WidebandTOAFitter(_WidebandKernels, GLSFitter):
                 "apply to wideband's stacked [TOA; DM] system; use "
                 "fused='mixed' to force the mixed-precision MXU path"
             )
-        super().__init__(toas, model, device=device, fused=fused)
+        super().__init__(toas, model, full_cov, fused, device=device)
 
     def _fourier_available(self) -> bool:
         return False
@@ -179,8 +172,8 @@ class WidebandDownhillFitter(_WidebandKernels, DownhillFitter):
     the CPU and on the fallback rung; the objective is the stacked GLS
     chi2 with the offset profiled out over the TOA rows."""
 
-    def __init__(self, toas, model, device=None, full_cov: bool = False):
-        _no_full_cov(type(self).__name__, full_cov)
+    def __init__(self, toas, model, full_cov: bool = False, *, device=None):
+        no_full_cov(type(self).__name__, full_cov)
         _validate_wideband(toas)
         super().__init__(toas, model, device=device)
 

@@ -16,6 +16,7 @@ converts the parameters to TDB (``tcb_conversion.py``).
 from __future__ import annotations
 
 import io
+import os
 import warnings
 from collections import OrderedDict
 
@@ -148,9 +149,22 @@ def _top_param(name, tokens):
     return p
 
 
-def get_model(par_text: str) -> TimingModel:
-    """Par-file text -> validated TimingModel of the ported components."""
-    pardict = parse_parfile(par_text)
+def _par_text(par) -> str:
+    """The reference's ``utils/misc.py::lines_of`` rule: a str holding a
+    newline is par text; any other str or path is a file to read; else
+    ``par`` is an open file."""
+    if isinstance(par, str) and "\n" in par:
+        return par
+    if isinstance(par, (str, os.PathLike)):
+        with open(par) as f:
+            return f.read()
+    return par.read()
+
+
+def get_model(par) -> TimingModel:
+    """Par file (path, text or open file) -> validated TimingModel of the
+    ported components."""
+    pardict = parse_parfile(_par_text(par))
     units = pardict.get("UNITS", [["TDB"]])[0][0].upper()
     if units not in ("TDB", "TCB"):
         raise ValueError(f"UNITS {units!r}: only TDB and TCB par files")

@@ -33,6 +33,7 @@ from pint_tpu_torch.models.component import (
 from pint_tpu_torch.models.parameter import MJDParameter, Parameter
 from pint_tpu_torch.ops.dd import DD
 from pint_tpu_torch.ops.phase import Phase
+from pint_tpu_torch.runtime.graphs import ProgramCache
 from pint_tpu_torch.timebase.hostdd import HostDD
 from pint_tpu_torch.toas.bundle import TOABundle, make_bundle
 
@@ -233,6 +234,9 @@ class CompiledModel:
         self._index = {n: i for i, n in enumerate(self.free_names)}
         self.ref: dict[str, object] = reference_values(model)
         self._ref_dev = None  # device copy of ref, rebuilt after commit()
+        # the fit loops' step programs (runtime/graphs.py), dropped by
+        # commit(): their graphs read the reference tensors by address
+        self.programs = ProgramCache(self.device)
         self.track_mode = (
             "use_pulse_numbers"
             if not bool(torch.all(torch.isnan(bundle.pulse_number)))
@@ -441,6 +445,15 @@ class CompiledModel:
         jac = jacfwd(self.phase_residuals)(x)
         return jac / self.spin_frequency(x)[:, None]
 
+    def program(self, fn, key):
+        """``fn`` of static-shape tensors as a step program, cached under
+        ``key`` until the next ``commit``: CUDA graphs replayed on the
+        card, ``fn`` itself on the CPU (``runtime/graphs.py``).  The
+        counterpart of the reference's ``CompiledModel.jit``, the
+        chokepoint through which its fit loops become one device
+        program."""
+        return self.programs.program(fn, key)
+
     # -- commit fitted deltas back to host parameters ---------------------
     def commit(self, x, uncertainties=None):
         x = np.asarray(x, dtype=np.float64)
@@ -459,3 +472,4 @@ class CompiledModel:
         for n in self._index:
             self.ref[n] = params[n].internal()
         self._ref_dev = None
+        self.programs.clear()

@@ -104,6 +104,19 @@ def c_entry(name: str, argtypes):
     return fn
 
 
+#: (wrapper, attribute) of every launch count of the kernels' wrappers.
+#: A wrapper adds one where it launches its kernel; a CUDA graph's replay
+#: adds what its capture recorded (runtime/graphs.py)
+LAUNCH_COUNTERS: list = []
+
+
+def count_launches(wrapper, *attrs):
+    """Give a kernel wrapper launch counts from 0 and register them."""
+    for attr in attrs:
+        setattr(wrapper, attr, 0)
+        LAUNCH_COUNTERS.append((wrapper, attr))
+
+
 #: the reference kernels' precision rungs (their MXU pass ladder)
 PRECISIONS = ("highest", "high", "default")
 

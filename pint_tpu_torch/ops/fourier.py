@@ -58,7 +58,11 @@ import math
 
 import torch
 
-from pint_tpu_torch.ops._cuda_build import c_entry, check_precision
+from pint_tpu_torch.ops._cuda_build import (
+    c_entry,
+    check_precision,
+    count_launches,
+)
 
 F32 = torch.float32
 F64 = torch.float64
@@ -203,7 +207,7 @@ def basis32(t, freqs):
     """The reference's f32 basis [sin | cos] (n, 2k): the argument
     (f32(2 pi) * f32(f_j)) * f32(t_i) in f32, then its sin and cos
     correctly rounded to f32 (through f64)."""
-    fw = torch.tensor(TWO_PI, dtype=F32, device=t.device) * freqs.to(F32)
+    fw = torch.full((), TWO_PI, dtype=F32, device=t.device) * freqs.to(F32)
     arg = (fw[None, :] * t.to(F32)[:, None]).to(F64)
     return torch.cat([torch.sin(arg), torch.cos(arg)], dim=1).to(F32)
 
@@ -333,7 +337,7 @@ def fourier_gram_cuda(t, freqs, w, X, precision: str = "highest"):
     return sig, twx
 
 
-fourier_gram_cuda.launches = 0
+count_launches(fourier_gram_cuda, "launches")
 
 
 def fourier_apply_cuda(t, freqs, z, precision: str = "highest"):
@@ -370,7 +374,7 @@ def fourier_apply_cuda(t, freqs, z, precision: str = "highest"):
     return y
 
 
-fourier_apply_cuda.launches = 0
+count_launches(fourier_apply_cuda, "launches")
 
 
 def fourier_gram(t, freqs, w, X, precision: str = "highest"):

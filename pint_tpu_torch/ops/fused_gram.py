@@ -48,7 +48,11 @@ import functools
 import numpy as np
 import torch
 
-from pint_tpu_torch.ops._cuda_build import c_entry, check_precision
+from pint_tpu_torch.ops._cuda_build import (
+    c_entry,
+    check_precision,
+    count_launches,
+)
 
 F32 = torch.float32
 F64 = torch.float64
@@ -368,9 +372,8 @@ def fused_gram_joint_cuda(T, A, w, precision: str = "highest"):
     return gtt, gta, gaa
 
 
-fused_gram_joint_cuda.launches = 0
-fused_gram_joint_cuda.wide_launches = 0
-fused_gram_joint_cuda.batched_launches = 0
+count_launches(fused_gram_joint_cuda, "launches", "wide_launches",
+               "batched_launches")
 #: (pulsars, rows, k, p1) of the last launch
 fused_gram_joint_cuda.last_shape = None
 

@@ -5,10 +5,12 @@ index from a right-sided ``searchsorted`` clipped to [1, len - 1], the
 same linear formula (a zero-width bracket takes its left value), and the
 end values held flat outside [xp[0], xp[-1]].  ``nearest`` is the
 reference IFunc's nearest-node rule (ties go to the right node).  Both
-take host tables (numpy or tensors) and per-TOA ``x`` tensors.
+take host tables (numpy arrays or sequences) and per-TOA ``x`` tensors.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -16,9 +18,19 @@ import torch
 _EPS = float(np.spacing(np.finfo(np.float64).eps))
 
 
+@functools.cache
+def _device_table(data: bytes, device) -> torch.Tensor:
+    return torch.as_tensor(np.frombuffer(data, dtype=np.float64).copy(),
+                           device=device)
+
+
 def _table(a, like):
-    return torch.as_tensor(np.asarray(a, dtype=np.float64),
-                           device=like.device)
+    """The host table ``a`` on ``like``'s device, copied there once per
+    distinct table and kept: a step program's graph reads it by address,
+    and a copy to the card inside a captured step would wait on the
+    host."""
+    a = np.ascontiguousarray(a, dtype=np.float64)
+    return _device_table(a.tobytes(), like.device)
 
 
 def interp(x, xp, fp):

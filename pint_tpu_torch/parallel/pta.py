@@ -27,6 +27,7 @@ from pint_tpu_torch.fitting.base import noffset
 from pint_tpu_torch.fitting.gls import default_accel_mode, gauss_newton_step
 from pint_tpu_torch.models.timing_model import device_anchors, split_ref
 from pint_tpu_torch.ops.dd import DD
+from pint_tpu_torch.runtime.graphs import ProgramCache, flatten
 from pint_tpu_torch.toas.bundle import TOABundle
 
 #: Uncertainty of a padded TOA (microseconds), the reference's: its
@@ -70,35 +71,9 @@ def pad_bundle_to(bundle: TOABundle, n: int) -> TOABundle:
     return out._replace(error_us=err)
 
 
-# -- a pytree of tensors as a flat list, so vmap maps every leaf --------------
-def _flatten(tree):
-    """-> (tensor leaves, rebuild(leaves) -> tree) for trees of dicts,
-    tuples, NamedTuples (TOABundle, DD), tensors and None."""
-    leaves = []
-
-    def walk(t):
-        if isinstance(t, torch.Tensor):
-            leaves.append(t)
-            return lambda it: next(it)
-        if t is None:
-            return lambda it: None
-        if isinstance(t, dict):
-            subs = {k: walk(v) for k, v in t.items()}
-            return lambda it: {k: f(it) for k, f in subs.items()}
-        if isinstance(t, tuple):
-            subs = [walk(v) for v in t]
-            make = (type(t)._make if hasattr(type(t), "_fields")
-                    else tuple)
-            return lambda it: make(f(it) for f in subs)
-        raise TypeError(f"unexpected leaf {type(t).__name__} in a PTA state")
-
-    build = walk(tree)
-    return leaves, lambda ls: build(iter(ls))
-
-
 def _stack(trees):
     """Stack equally structured trees leaf by leaf on a new axis 0."""
-    flats = [_flatten(t) for t in trees]
+    flats = [flatten(t) for t in trees]
     leaves = [torch.stack(ls) for ls in zip(*(f[0] for f in flats))]
     return flats[0][1](leaves)
 
@@ -211,20 +186,25 @@ class PTABatch:
         self.flat_ref = torch.tensor(
             [[float(cm.ref[n]) for n in flat_names] for cm in cms],
             dtype=F64, device=self.device)
+        # the batch keeps the reference values it was built with, so its
+        # step programs stay valid across commit()
+        self.programs = ProgramCache(self.device)
 
     # -- batched kernels --------------------------------------------------
     def _vmapped(self, fn):
         """``fn(proto_cm, x_i)`` over the pulsar axis with each pulsar's
         bundle and reference values swapped into the prototype (they are
-        what its kernels read off the instance)."""
-        proto = self._proto
-        leaves, rebuild = _flatten((self.bundle, self.ref, self.flat_ref))
+        what its kernels read off the instance).  The result holds no
+        reference to the batch, so a program of it in the batch's cache
+        makes no cycle."""
+        proto, static = self._proto, self._static
+        leaves, rebuild = flatten((self.bundle, self.ref, self.flat_ref))
 
         def call(xs_i, *ls):
             bundle, ref, flat = rebuild(ls)
             saved = proto.bundle, proto._ref_dev, proto._flat_ref
             proto.bundle = bundle
-            proto._ref_dev = {**self._static, **ref}
+            proto._ref_dev = {**static, **ref}
             proto._flat_ref = flat
             try:
                 return fn(proto, xs_i)
@@ -251,10 +231,8 @@ class PTABatch:
         f64 otherwise."""
         return default_accel_mode(self._proto)
 
-    def fit_step(self, xs, mode: str | None = None):
-        """One batched GLS Gauss-Newton step for every pulsar:
-        -> (new xs (P, p), chi2 (P,), (covn (P, p, p), norm (P, p))).
-        ``mode``: 'mixed' | 'f64' | None (the GLSFitter policy)."""
+    def _step_fn(self, mode: str | None):
+        """The batched step of ``mode`` as a function of xs."""
         no = noffset(self._proto)
         mode = mode or self._step_mode()
         if mode not in ("mixed", "f64"):
@@ -267,21 +245,34 @@ class PTABatch:
             xn, (covn, nrm), chi2, _ = gauss_newton_step(cm, x, mode)
             return xn, chi2, (covn[no:, no:], nrm[no:])
 
-        return self._vmapped(single)(xs)
+        return self._vmapped(single)
+
+    def fit_step(self, xs, mode: str | None = None):
+        """One batched GLS Gauss-Newton step for every pulsar, run
+        eagerly: -> (new xs (P, p), chi2 (P,), (covn (P, p, p),
+        norm (P, p))).  ``mode``: 'mixed' | 'f64' | None (the GLSFitter
+        policy)."""
+        return self._step_fn(mode)(xs)
 
     def fit(self, maxiter: int = 3, mode: str | None = None):
         """``maxiter`` batched steps from the par values, then the
-        covariance at the result (the steps' own is one step stale):
-        -> (xs (P, p), chi2 (P,)).  ``self.cov`` holds the (P, p, p)
-        covariances, unnormalized on the host; ``self.steps_taken`` the
-        batched steps run."""
+        covariance at the result (the steps' own is one step stale), as
+        ``maxiter + 1`` replays of one step program with no host read
+        between them (the reference's scan): -> (xs (P, p), chi2 (P,)).
+        ``self.cov`` holds the (P, p, p) covariances, unnormalized on the
+        host; ``self.steps_taken`` the batched steps run."""
         if maxiter < 1:
             raise PintTpuError("PTABatch.fit needs maxiter >= 1")
         mode = mode or self._step_mode()
+        # the batch's step program (runtime/graphs.py: replayed CUDA
+        # graphs on the card), the counterpart of the reference's jitted
+        # scan body
+        step = self.programs.program(self._step_fn(mode),
+                                     ("pta", mode, self.npulsars, self.ntoa))
         xs = self.x0()
         for _ in range(maxiter):
-            xs, chi2, _ = self.fit_step(xs, mode=mode)
-        _, _, (covn, nrm) = self.fit_step(xs, mode=mode)
+            xs, chi2, _ = step(xs)
+        _, _, (covn, nrm) = step(xs)
         self.steps_taken = maxiter + 1
         covn, nrm = covn.cpu().numpy(), nrm.cpu().numpy()
         self.cov = covn / (nrm[:, :, None] * nrm[:, None, :])

@@ -10,6 +10,8 @@ and the step inputs as numpy arrays made here from seeds.  Tolerances
 are stated per test.
 """
 
+import ast
+import inspect
 import math
 import sys
 import textwrap
@@ -36,6 +38,10 @@ from pint_tpu_torch.fitting import (  # noqa: E402
     DownhillGLSFitter,
     DownhillWLSFitter,
     GLSFitter,
+    MinimizeFitter,
+    PowellFitter,
+    WidebandDownhillFitter,
+    WidebandTOAFitter,
     WLSFitter,
     auto_fitter,
     ftest,
@@ -256,6 +262,64 @@ def test_wls_step_qr_routes_underdetermined_to_gram():
     want = _wls_step(r, M, w, method="gram")
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert int(got[2]) >= 3
+
+
+# -- the fitters' signatures (ROADMAP C R5) ---------------------------------
+REF_FITTING = Path(__file__).resolve().parent.parent / "pint_tpu" / "fitting"
+PORT_FITTERS = [GLSFitter, WLSFitter, DownhillWLSFitter, DownhillGLSFitter,
+                WidebandTOAFitter, WidebandDownhillFitter, MinimizeFitter,
+                PowellFitter]
+
+
+def _reference_positional(name):
+    """The positional parameter names of the reference's class ``name``,
+    read from its source by ``ast`` (no JAX import): its own ``__init__``
+    or the first one up its bases."""
+    classes = {}
+    for path in sorted(REF_FITTING.glob("*.py")):
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, ast.ClassDef):
+                init = next((f for f in node.body
+                             if isinstance(f, ast.FunctionDef)
+                             and f.name == "__init__"), None)
+                classes[node.name] = (
+                    [getattr(b, "id", getattr(b, "attr", None))
+                     for b in node.bases], init)
+
+    def find(n):
+        if n not in classes:
+            return None
+        bases, init = classes[n]
+        if init is not None:
+            return [a.arg for a in init.args.args]
+        return next((got for got in map(find, bases) if got), None)
+
+    return find(name)
+
+
+@pytest.mark.parametrize("cls", PORT_FITTERS, ids=lambda c: c.__name__)
+def test_fitter_positional_parameters_are_the_references(cls):
+    """Each fitter takes the reference's positional parameters, in its
+    order; ``device`` is keyword-only."""
+    sig = inspect.signature(cls.__init__).parameters
+    positional = [n for n, p in sig.items()
+                  if p.kind is inspect.Parameter.POSITIONAL_OR_KEYWORD]
+    assert positional == _reference_positional(cls.__name__)
+    assert sig["device"].kind is inspect.Parameter.KEYWORD_ONLY
+
+
+def test_glsfitter_full_cov_is_refused_as_the_reference_does():
+    """``GLSFitter(t, m, True, True)``: the reference's PintTpuError (the
+    fused and mixed paths are reduced-rank); ``full_cov=True`` alone
+    names ROADMAP A8."""
+    model, toas = _white()
+    for fused in (True, "mixed"):
+        with pytest.raises(PintTpuError, match="mutually exclusive"):
+            GLSFitter(toas, model, True, fused, device="cpu")
+    with pytest.raises(NotImplementedError, match="A8"):
+        GLSFitter(toas, model, True, device="cpu")
+    f = GLSFitter(toas, model, False, False, device="cpu")
+    assert f.fused is False
 
 
 # -- the downhill ladder and its noise floor --------------------------------

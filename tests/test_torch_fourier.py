@@ -579,5 +579,9 @@ def test_fused_fit_on_card_goes_through_the_kernel():
     chi2 = f.fit_toas(maxiter=3)
     assert f.mode == "fourier" and math.isfinite(chi2)
     assert f.guard_report.rung == "cuda-fourier"
-    assert fourier.fourier_gram_cuda.launches - before[0] == f.steps_taken
+    # every step a replay of the step program, whose capture's warm-up
+    # call launched the kernel once more
+    assert f.cm.programs.replays == f.steps_taken
+    assert fourier.fourier_gram_cuda.launches - before[0] == (
+        f.steps_taken + f.cm.programs.captures)
     assert fused_gram.fused_gram_joint_cuda.launches == before[1]

@@ -219,6 +219,29 @@ def test_get_model_rejects_unported_lines(line, exc, match):
             get_model(BENCH_PAR + line + "\n")
 
 
+@pytest.mark.parametrize("how", ["path", "pathlib", "file"])
+def test_get_model_reads_a_path_or_a_file(how):
+    """ROADMAP C R6: as in the reference (its ``lines_of`` rule), a str
+    without a newline, a ``pathlib.Path`` and an open file are read, and
+    give the model of the par text itself (golden1)."""
+    path = DATADIR / "golden1.par"
+    want = get_model(path.read_text())
+    if how == "file":
+        with open(path) as f:
+            got = get_model(f)
+    else:
+        got = get_model(str(path) if how == "path" else path)
+    assert repr(got) == repr(want) and got.name == "GOLDEN1"
+    assert got.free_params == want.free_params and len(got.free_params) > 0
+    def plain(v):
+        if isinstance(v, HostDD):
+            return (v.hi, v.lo)
+        return tuple(map(plain, v)) if isinstance(v, tuple) else v
+
+    assert ({n: plain(v) for n, v in reference_values(got).items()}
+            == {n: plain(v) for n, v in reference_values(want).items()})
+
+
 def test_entry_points_need_a_card_unless_told(monkeypatch):
     """device=None means the card; without one the port raises instead of
     falling back to the CPU."""

@@ -415,5 +415,8 @@ def test_wideband_fit_on_card_goes_through_the_kernel():
     before = fused_gram.fused_gram_joint_cuda.launches
     chi2 = f.fit_toas(maxiter=3)
     assert f.mode == "mixed" and math.isfinite(chi2)
+    # every step a replay of the step program, whose capture's warm-up
+    # call launched the kernel once more
+    assert f.cm.programs.replays == f.steps_taken
     assert fused_gram.fused_gram_joint_cuda.launches - before == (
-        f.steps_taken)
+        f.steps_taken + f.cm.programs.captures)
