@@ -137,6 +137,32 @@ Phases, each of which raises on failure (exit code != 0):
    of scale of its own single launch, and timed beside its bound and
    one batched f64 GEMM (``torch.bmm``) of the same Y.
 
+11. the dense-covariance step (``full_cov=True``): on bench.py's pulsar
+   at 16384 and 32768 TOAs one step by each method (mixed: the f32
+   equilibrated covariance and its factor refined in f64; f64) at the
+   step gates of the Woodbury f64 step from the same inputs and mixed at
+   them of f64, each timed (CUDA events, host clock, added peak), graphed
+   bitwise against eager, and a GLSFitter(full_cov=True) fit on each
+   route on its native rung; the factorizations of the equilibrated
+   covariance at 8192, 16384 and 32768 (the native ``cholesky_ex`` in
+   f32 and f64, ``fast_cholesky32``, ``blocked_cholesky`` in f64) timed
+   beside their bound n^3/3 flop at 67 TFLOP/s, the blocked factors held
+   to the native ones and ``solve_policy.ir_cholesky``'s route to the
+   faster f32 factor of this run; the 2048-TOA copy card vs CPU (the f64
+   dense step within 1e-8, the card's mixed one at the step gates); the
+   MSP's DownhillGLSFitter(full_cov=True) fit at 16384 TOAs and the
+   wideband MSP's WidebandTOAFitter and WidebandDownhillFitter with
+   full_cov at 8192 TOAs (16384 stacked rows), each on its native rung;
+   no kernel launches on this path;
+12. the O(append) streaming solver on bench.py's pulsar and the binary
+   MSP at 1e5 TOAs: ``stream_state_init`` on the first 1e5 - 640 rows,
+   ten ``stream_state_append``s of 64 rows (their basis rows from
+   ``fourier_basis_rows``), a ``stream_state_solve`` after each, none
+   poisoned by the drift check; the final blocks within 1e-10 of a fresh
+   init on all rows and the solve at the step gates of the f64 Woodbury
+   step on all rows; an append and a solve timed eager and graphed
+   (bitwise) beside the graphed full mixed step of phases 5 and 6.
+
 Every fit above runs its steps as replays of step programs
 (``runtime/graphs.py``: CUDA graphs captured once, after one eager
 warm-up call), and each check says so: a GLSFitter, WLSFitter or
@@ -163,8 +189,10 @@ The last three lines are the kernels JSON (each kernel at the binary
 MSP's shapes, with its launches in the MSP's fits, and under ``bench``
 the same numbers at bench.py's pulsar; ``fused_gram_joint`` also with
 the launches of the downhill fits of phase 7, under ``full_width``
-its q = 350 entry with the launches of phase 8's fits, and under
-``wideband`` and ``pta`` those of phases 9 and 10), nvidia-smi's
+its q = 350 entry with the launches of phase 8's fits, under
+``wideband`` and ``pta`` those of phases 9 and 10, and under ``dense``
+and ``stream`` phases 11 and 12's results with their zero launches),
+nvidia-smi's
 name and power limit, and ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the package beside it, the script exits non-zero
 before printing any result.
@@ -181,6 +209,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
@@ -200,9 +229,14 @@ from pint_tpu_torch.fitting.gls import (  # noqa: E402
     _column_norms,
     default_accel_mode,
     gauss_newton_step,
+    gls_step_full_cov,
     gls_step_woodbury,
     gls_step_woodbury_fourier,
     gls_step_woodbury_mixed,
+    stream_state_append,
+    stream_state_gaps,
+    stream_state_init,
+    stream_state_solve,
 )
 from pint_tpu_torch.fitting.downhill import _ladder_lams  # noqa: E402
 from pint_tpu_torch.fitting.spread import (  # noqa: E402
@@ -214,8 +248,19 @@ from pint_tpu_torch.fitting.spread import (  # noqa: E402
 from pint_tpu_torch.fitting.wls import _qr_gate, _wls_step  # noqa: E402
 from pint_tpu_torch.exceptions import PintTpuError  # noqa: E402
 from pint_tpu_torch.models.builder import get_model  # noqa: E402
-from pint_tpu_torch.ops import fourier, fused_gram  # noqa: E402
+from pint_tpu_torch.models.noise import (  # noqa: E402
+    fourier_basis_rows,
+    fourier_freqs,
+)
+from pint_tpu_torch.ops import fourier, fused_gram, solve_policy  # noqa: E402
 from pint_tpu_torch.ops._cuda_build import build_libraries  # noqa: E402
+from pint_tpu_torch.ops.dd import DD  # noqa: E402
+from pint_tpu_torch.ops.ffgram import nan_cholesky  # noqa: E402
+from pint_tpu_torch.ops.solve_policy import stream_drift_rtol  # noqa: E402
+from pint_tpu_torch.parallel.dense import (  # noqa: E402
+    blocked_cholesky,
+    fast_cholesky32,
+)
 from pint_tpu_torch.parallel.pta import PTABatch  # noqa: E402
 from pint_tpu_torch.runtime import graphs  # noqa: E402
 from pint_tpu_torch.simulation import (  # noqa: E402
@@ -1563,6 +1608,311 @@ def pta_phase(dev, rng):
                 **kernel["composition"], bench_shape=kernel["bench"])
 
 
+#: phase 11: the dense steps' sizes, the Cholesky timings' sizes, and the
+#: MSP and wideband MSP sizes of the dense fits (the wideband's stacked
+#: system has twice its TOAs as rows)
+DENSE_NS = (16384, 32768)
+CHOL_NS = (8192, 16384, 32768)
+DENSE_MSP_NTOA = 16384
+DENSE_WB_NTOA = 8192
+#: phase 12: TOAs appended after the stream's init, in appends of
+STREAM_TAIL = 640
+STREAM_CHUNK = 64
+
+
+def event_ms(fn, reps=3):
+    """One call's CUDA-event time and host time (medians of ``reps``
+    single calls after a warm-up) and the peak allocation a call adds
+    above what was allocated before it."""
+    fn()
+    torch.cuda.synchronize()
+    ts, hs = [], []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        hs.append((time.perf_counter() - t0) * 1e3)
+        ts.append(s.elapsed_time(e))
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return dict(ms=statistics.median(ts), host_ms=statistics.median(hs),
+                peak_extra_bytes=torch.cuda.max_memory_allocated() - base)
+
+
+def equilibrated_cov(T, phi, Nd, dtype):
+    """The bench pulsar's equilibrated covariance D^-1/2 C D^-1/2 = W W^T
+    with a unit diagonal, as ``woodbury_chol_solve_ir`` forms it."""
+    dinv = 1.0 / torch.sqrt(Nd + torch.sum(T * T * phi[None, :], dim=1))
+    W = (T * torch.sqrt(phi)[None, :] * dinv[:, None]).to(dtype)
+    C = W @ W.T
+    C.diagonal().fill_(1.0)
+    return C
+
+
+def cholesky_times(T, phi, Nd):
+    """The factorizations of the dense step at n = 8192, 16384 and 32768
+    (the bench pulsar's first n rows' equilibrated covariance): the
+    native ``cholesky_ex`` in f32 and f64, ``fast_cholesky32`` and
+    ``blocked_cholesky`` in f64, each beside its bound n^3/3 flop at the
+    67 TFLOP/s f64 tensor-core peak; the blocked factors against the
+    native ones; and ``solve_policy.ir_cholesky``'s route against the
+    faster f32 factor of this run.  -> {n: times}."""
+    out = {}
+    for n in CHOL_NS:
+        C32 = equilibrated_cov(T[:n], phi, Nd[:n], torch.float32)
+        row = {"native_f32": event_ms(lambda: nan_cholesky(C32)),
+               "fast_cholesky32": event_ms(lambda: fast_cholesky32(C32))}
+        L32, Lb32 = nan_cholesky(C32), fast_cholesky32(C32)
+        row["fast_vs_native_f32"] = rel(Lb32, L32)
+        del L32, Lb32
+        C64 = C32.double()
+        del C32
+        row["native_f64"] = event_ms(lambda: nan_cholesky(C64))
+        row["blocked_f64"] = event_ms(lambda: blocked_cholesky(C64))
+        L64, Lb64 = nan_cholesky(C64), blocked_cholesky(C64)
+        row["blocked_vs_native_f64"] = rel(Lb64, L64)
+        del C64, L64, Lb64
+        row["bound_ms"] = n ** 3 / 3 / F64_TC_FLOPS * 1e3
+        fast = row["fast_cholesky32"]["ms"] < row["native_f32"]["ms"]
+        routed = solve_policy.ir_cholesky(n, T.device) is fast_cholesky32
+        row["ir_cholesky"] = "fast_cholesky32" if routed else "native"
+        log(f"cholesky n={n} (ms; bound {row['bound_ms']:.2f}): {row}")
+        check(math.isfinite(row["fast_vs_native_f32"])
+              and math.isfinite(row["blocked_vs_native_f64"]),
+              f"a factor at n = {n} is not finite")
+        check(row["blocked_vs_native_f64"] <= 1e-10,
+              f"blocked_cholesky differs from the native f64 factor by "
+              f"{row['blocked_vs_native_f64']} at n = {n}")
+        check(routed == fast,
+              f"ir_cholesky({n}) routes to {row['ir_cholesky']}, but this "
+              f"run measured fast_cholesky32 "
+              f"{'faster' if fast else 'slower'} than the native factor")
+        out[n] = row
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dense_steps(label, f, x):
+    """One dense step from x in both methods beside the f64 Woodbury step
+    on the same inputs: each within the step gates of the Woodbury step,
+    mixed within them of f64; each step's CUDA-event and host time and
+    its peak extra allocation.  -> (gates, times)."""
+    args = (*f._step_inputs(x), *f._step_noise(x))
+    n = args[0].shape[0]
+    steps = {m: gls_step_full_cov(*args, method=m, normalized_cov=True)
+             for m in ("mixed", "f64")}
+    wood = gls_step_woodbury(*args, normalized_cov=True)
+    gates = {m: step_gates(f"{label} dense {m}", s, wood, ntoa=n)
+             for m, s in steps.items()}
+    gates["mixed_vs_f64"] = step_gates(f"{label} dense mixed vs f64",
+                                       steps["mixed"], steps["f64"], ntoa=n)
+    del steps
+    times = {m: event_ms(lambda m=m: gls_step_full_cov(
+        *args, method=m, normalized_cov=True)) for m in ("mixed", "f64")}
+    times["woodbury_f64"] = event_ms(
+        lambda: gls_step_woodbury(*args, normalized_cov=True))
+    log(f"{label} steps at {n} rows (ms, median of 3): {times}")
+    return gates, times
+
+
+def dense_phase(dev):
+    """Phase 11: the dense-covariance GLS step (``full_cov=True``) on
+    bench.py's pulsar at 16384 and 32768 TOAs (both methods against the
+    Woodbury f64 step, graphed against eager, and a GLSFitter fit on
+    each route), the factorizations timed, the 2048-TOA copy card vs
+    CPU, the MSP's downhill fit at 16384 TOAs and the wideband MSP's two
+    fitters at 8192 TOAs (16384 stacked rows).  Every fit launches none
+    of the three kernels (its counts read 0).  -> what the kernels line
+    reports."""
+    out = {"steps": {}, "fits": {}}
+    for n in DENSE_NS:
+        model, toas = make_test_pulsar(BENCH_PAR, ntoa=n, device=dev, **SIM)
+        fm = GLSFitter(toas, model, full_cov=True, device=dev)
+        ff = GLSFitter(toas, get_model(BENCH_PAR), full_cov=True,
+                       fused=False, device=dev)
+        x = fm.cm.x0()
+        gates, times = dense_steps(f"bench {n}", fm, x)
+        for f, m in ((fm, "mixed"), (ff, "f64")):
+            graph_check(f"bench dense {m} step n={n}",
+                        lambda x_, f=f: f._gn_step(x_, "full_cov"), (x,),
+                        times[m]["host_ms"])
+        if n == CHOL_NS[-1]:
+            T, phi = fm._step_noise(x)
+            Nd = fm._step_inputs(x)[2]
+        del fm, ff
+        fits = {}
+        for m, fused in (("mixed", "auto"), ("f64", False)):
+            f, launches = drive("full_cov", lambda fused=fused: GLSFitter(
+                toas, get_model(BENCH_PAR), full_cov=True, fused=fused,
+                device=dev), f"bench dense {m} n={n}")
+            fits[m] = dict(steps=f.steps_taken, chi2=f.chi2,
+                           rung=f.guard_report.rung, launches=launches)
+        out["steps"][n] = dict(gates=gates, times=times, fits=fits)
+        del model, toas
+        phase_memory(f"11 n={n}")
+    out["cholesky"] = cholesky_times(T, phi, Nd)
+    del T, phi, Nd
+
+    # the 2048-TOA copy: the f64 dense step card vs CPU, the card's
+    # mixed dense step at the step gates of the CPU's f64
+    small = {}
+    m2, t2 = make_test_pulsar(BENCH_PAR, ntoa=2048, device="cpu", **SIM)
+    for key, d in (("cpu", "cpu"), ("card", dev)):
+        f = GLSFitter(t2, m2, full_cov=True, device=d)
+        xs = f.cm.x0()
+        args = (*f._step_inputs(xs), *f._step_noise(xs))
+        for m in ("f64", "mixed"):
+            leaves, build = graphs.flatten(gls_step_full_cov(
+                *args, method=m, normalized_cov=True))
+            small[key, m] = build([v.cpu() for v in leaves])
+    (cdx, (ccov, _), cchi, _), (hdx, (hcov, _), hchi, _) = (
+        small["card", "f64"], small["cpu", "f64"])
+    out["card_vs_cpu"] = dict(
+        f64_dx_rel=rel(cdx, hdx), f64_cov_rel=rel(ccov, hcov),
+        f64_chi2_rel=abs(float(cchi) - float(hchi)) / abs(float(hchi)))
+    log(f"dense: card vs cpu at 2048 TOAs: {out['card_vs_cpu']}")
+    check(max(out["card_vs_cpu"].values()) <= 1e-8,
+          f"dense f64 step card vs cpu outside 1e-8: {out['card_vs_cpu']}")
+    out["card_vs_cpu"]["mixed_vs_cpu_f64"] = step_gates(
+        "dense card mixed vs cpu f64", small["card", "mixed"],
+        small["cpu", "f64"], ntoa=2048)
+
+    # the MSP's downhill fit with the dense proposal at 16384 TOAs
+    par = msp_par(MSP_NDMX, seed=0)
+    model, toas = make_test_pulsar(par, ntoa=DENSE_MSP_NTOA, device=dev,
+                                   **MSP_SIM)
+    _, out["fits"]["msp_downhill"] = downhill_fit(
+        f"msp dense {DENSE_MSP_NTOA}",
+        lambda: DownhillGLSFitter(toas, model, True, device=dev),
+        DownhillGLSFitter, wide=None, graph=True)
+    del model, toas
+    phase_memory("11 msp")
+
+    # the wideband MSP at 8192 TOAs: 16384 stacked rows
+    par = msp_wideband_par(MSP_NDMX, seed=0)
+    model, toas = make_test_pulsar(par, ntoa=DENSE_WB_NTOA, device=dev,
+                                   dm_error=WB_DM_ERROR, **MSP_SIM)
+    f, launches = drive("full_cov", lambda: WidebandTOAFitter(
+        toas, model, full_cov=True, device=dev), "wideband dense")
+    out["fits"]["wideband_toa"] = dict(steps=f.steps_taken, chi2=f.chi2,
+                                       rung=f.guard_report.rung,
+                                       launches=launches)
+    _, out["fits"]["wideband_downhill"] = downhill_fit(
+        "wideband dense", lambda: WidebandDownhillFitter(
+            toas, get_model(par), True, device=dev),
+        WidebandDownhillFitter, wide=None)
+    return out
+
+
+def _tail(bundle, lo, hi):
+    """The TDB times of rows lo:hi, all ``fourier_basis_rows`` reads."""
+    return SimpleNamespace(tdb_day=bundle.tdb_day[lo:hi],
+                           tdb_sec=DD(bundle.tdb_sec.hi[lo:hi],
+                                      bundle.tdb_sec.lo[lo:hi]))
+
+
+def stream_run(label, cm, graph_step):
+    """Phase 12 on one pulsar at 1e5 TOAs: r, M, Ndiag and T evaluated
+    once at the par values; ``stream_state_init`` on the first 1e5 - 640
+    rows, then ten appends of 64 rows (their basis rows from
+    ``fourier_basis_rows`` at the base span's frozen harmonics), each
+    followed by a ``stream_state_solve``, which must pass the drift
+    check (the appends go on from the appended state: the solves read
+    it).  Gates: the final G, twx and stt within 1e-10 of their largest
+    entry of a fresh init on all rows (at the frozen norms); the last
+    solve's dx within the step gates of the f64 Woodbury step on all
+    rows.  Times: an append and a solve, eager and graphed (bitwise
+    equal), beside ``graph_step``, the graphed full mixed step of this
+    run.  -> the summary."""
+    x = cm.x0()
+    r, M, Nd, T, phi = step_inputs(cm, x)
+    no = 0 if "PHOFF" in cm.free_names else 1
+    Ninv = 1.0 / Nd
+    n = r.shape[0]
+    n0 = n - STREAM_TAIL
+    red = cm.model.components["PLRedNoise"]
+    _, freqs, _ = fourier_freqs(cm.bundle, red._nharm())
+    day0 = cm.bundle.tdb_day[0]
+    check(T.shape[1] == 2 * freqs.shape[0],
+          f"{label}: the basis is not the red noise's alone ({T.shape})")
+    rtol = stream_drift_rtol()
+    t0 = time.perf_counter()
+    st = stream_state_init(r[:n0], M[:n0], Ninv[:n0], T[:n0], phi, x)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    basis_gap = 0.0
+    for lo in range(n0, n, STREAM_CHUNK):
+        hi = lo + STREAM_CHUNK
+        Tj = fourier_basis_rows(_tail(cm.bundle, lo, hi), freqs, day0)
+        basis_gap = max(basis_gap, float(torch.max(torch.abs(Tj - T[lo:hi]))))
+        st = stream_state_append(st, r[lo:hi], M[lo:hi], Ninv[lo:hi], Tj)
+        _, dx, cov, chi2 = stream_state_solve(st, no, check_rtol=rtol)
+        check(bool(torch.all(torch.isfinite(dx))) and math.isfinite(
+            float(chi2)), f"{label}: the drift check poisoned the solve "
+            f"after rows {lo}:{hi}")
+    check(st["sig_L"].dtype == torch.float32,
+          f"{label}: the card's maintained factor is {st['sig_L'].dtype}")
+    gaps = stream_state_gaps(
+        st, stream_state_init(r, M, Ninv, T, phi, x))
+    log(f"{label} stream: {n0} rows + {STREAM_TAIL // STREAM_CHUNK} appends "
+        f"of {STREAM_CHUNK}; blocks vs a fresh init {gaps}; the appended "
+        f"basis rows vs the host basis {basis_gap!r}; init {init_s:.3f} s")
+    check(max(gaps.values()) <= 1e-10,
+          f"{label}: the streamed blocks differ from a fresh init: {gaps}")
+    covn, norm = cov
+    wood = gls_step_woodbury(r, M, Nd, T, phi, normalized_cov=True)
+    wnorm = wood[1][1]
+    scale = torch.outer(wnorm / norm, wnorm / norm)
+    gates = step_gates(f"{label} stream solve",
+                       (dx, (covn * scale, wnorm), chi2, 0), wood, ntoa=n)
+
+    # an append and a solve, eager and graphed
+    leaves, rebuild = graphs.flatten(st)
+    lo = n - STREAM_CHUNK
+    tail = (r[lo:], M[lo:], Ninv[lo:], T[lo:].contiguous())
+
+    def append(*a):
+        return stream_state_append(rebuild(list(a[:-4])), *a[-4:])
+
+    def solve(*a):
+        return stream_state_solve(rebuild(list(a)), no, check_rtol=rtol)
+
+    times = {}
+    for name, fn, args in (("append", append, (*leaves, *tail)),
+                           ("solve", solve, tuple(leaves))):
+        eager = event_ms(lambda: fn(*args))
+        g = graph_check(f"{label} stream {name}", fn, args, eager["host_ms"])
+        times[name] = dict(eager_ms=eager["ms"],
+                           eager_host_ms=eager["host_ms"],
+                           graph_ms=g["graph_ms"],
+                           graph_host_ms=g["graph_host_ms"])
+    times["graphed_full_mixed_step_ms"] = graph_step
+    log(f"{label} stream times (ms): {times}")
+    return dict(rows=n, init_rows=n0, appends=STREAM_TAIL // STREAM_CHUNK,
+                k=T.shape[1], p=M.shape[1], init_s=init_s, gaps=gaps,
+                basis_rows_gap=basis_gap, vs_f64=gates, times=times)
+
+
+def stream_phase(dev, bench_toas, msp_toas):
+    """Phase 12: the O(append) streaming solver on bench.py's pulsar and
+    on the binary MSP (k = 60, p = 169) at 1e5 TOAs."""
+    out = {"bench": stream_run(
+        "bench", get_model(BENCH_PAR).compile(bench_toas, device=dev),
+        GRAPHS["bench mixed step"]["graph_ms"])}
+    out["msp"] = stream_run(
+        "msp", get_model(msp_par(MSP_NDMX, seed=0)).compile(msp_toas,
+                                                            device=dev),
+        GRAPHS["msp mixed step"]["graph_ms"])
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1751,7 +2101,8 @@ def main():
 
     # 7. the default entry point: auto_fitter -> the downhill fitters
     entry = entry_point_phase(toas, msp)
-    del msp["toas"], msp["gls"]
+    msp_toas = msp.pop("toas")
+    del msp["gls"]
     phase_memory(7)
 
     # 8. the full-width pulsar (q = 350) and the remaining components
@@ -1765,6 +2116,23 @@ def main():
     # 10. the PTA batch: 45 pulsars, one Gram launch a batched step
     pta = pta_phase(dev, rng)
     phase_memory(10)
+
+    # 11. the dense-covariance step, fits and factorizations
+    zero_counts()
+    dense = dense_phase(dev)
+    dense["launches"] = read_counts()
+    check(not any(dense["launches"].values()),
+          f"a kernel launched on the dense path: {dense['launches']}")
+    phase_memory(11)
+
+    # 12. the O(append) streaming solver
+    zero_counts()
+    stream = stream_phase(dev, toas, msp_toas)
+    stream["launches"] = read_counts()
+    check(not any(stream["launches"].values()),
+          f"a kernel launched on the streaming path: {stream['launches']}")
+    del msp_toas
+    phase_memory(12)
 
     # the kernels line: each kernel at the binary MSP's shapes (launches
     # from its fits), and under "bench" the same numbers at bench.py's
@@ -1820,6 +2188,8 @@ def main():
     rows[0]["full_width"] = full
     rows[0]["wideband"] = wideband
     rows[0]["pta"] = pta
+    rows[0]["dense"] = dense
+    rows[0]["stream"] = stream
     rows[0]["graphs"] = GRAPHS
     rows[0]["memory_after_phase"] = MEMORY
     print(json.dumps({"kernels": rows}), flush=True)

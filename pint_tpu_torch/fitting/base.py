@@ -106,14 +106,6 @@ def device_noise_floor(lams, c):
                        torch.zeros_like(ss))
 
 
-def no_full_cov(cls_name: str, full_cov: bool):
-    """Refuse ``full_cov=True``: the dense-covariance step is not ported."""
-    if full_cov:
-        raise NotImplementedError(
-            f"{cls_name}(full_cov=True) needs gls_step_full_cov, which is "
-            "not ported yet (ROADMAP A8)")
-
-
 class Fitter:
     """Common base: compiled kernels + offset column + post-fit commit.
     Positional parameters are the reference's; ``device`` (None: the

@@ -40,10 +40,10 @@ from pint_tpu_torch.fitting.base import (
     Fitter,
     design_with_offset,
     device_noise_floor,
-    no_full_cov,
 )
 from pint_tpu_torch.fitting.gls import (
     default_accel_mode,
+    gls_step_full_cov,
     gls_step_woodbury,
     gls_step_woodbury_mixed,
     make_cinv_mult,
@@ -470,6 +470,21 @@ class DownhillFitter(Fitter):
         return self._finalize(x, cov, float(chi2))
 
 
+def _proposal_step(cm, full_cov: bool, force_f64: bool):
+    """The GLS proposal step of the downhill GLS fitters: the all-f64
+    Woodbury step on the fallback rung, else the dense step with
+    ``full_cov``, else the mixed step on the card for a correlated-noise
+    model (only the direction's quality matters, as the chi2 ladder gates
+    acceptance), else the f64 step."""
+    if force_f64:
+        return gls_step_woodbury
+    if full_cov:
+        return gls_step_full_cov
+    if default_accel_mode(cm) == "mixed":
+        return gls_step_woodbury_mixed
+    return gls_step_woodbury
+
+
 class DownhillWLSFitter(DownhillFitter):
     """Downhill WLS: the proposal is ``_wls_step`` (QR on the card, SVD
     on the CPU); refuses a model with correlated noise."""
@@ -505,13 +520,15 @@ class DownhillGLSFitter(DownhillFitter):
     """Downhill GLS.  The proposal is the reduced-rank Woodbury step —
     mixed on the card for a correlated-noise model (``GLSFitter``'s
     policy, whose joint Gram is the CUDA kernel), all-f64 on the CPU and
-    on the fallback rung.  The objective is the GLS chi2 r^T C^-1 r with
-    the implicit offset profiled out: chi2 - (1^T C^-1 r)^2 / (1^T C^-1 1).
-    ``full_cov=True`` (the dense-covariance step) is not ported."""
+    on the fallback rung — or, with ``full_cov=True``, the dense step
+    (``gls_step_full_cov``: mixed on the card, f64 on the CPU).  The
+    objective is the GLS chi2 r^T C^-1 r with the implicit offset
+    profiled out, chi2 - (1^T C^-1 r)^2 / (1^T C^-1 1), by Woodbury in
+    every case: the dense step changes only the proposal."""
 
     def __init__(self, toas, model, full_cov: bool = False, *, device=None):
-        no_full_cov(type(self).__name__, full_cov)
         super().__init__(toas, model, device=device)
+        self.full_cov = full_cov
 
     def _noise(self, x):
         Ndiag = torch.square(self.cm.scaled_sigma(x))
@@ -520,12 +537,7 @@ class DownhillGLSFitter(DownhillFitter):
 
     def _make_proposal(self, force_f64: bool = False):
         cm, noffset = self.cm, self._noffset
-        # only the direction's quality matters here (the chi2 ladder
-        # gates acceptance), so the mixed step applies on the card
-        if not force_f64 and default_accel_mode(cm) == "mixed":
-            step = gls_step_woodbury_mixed
-        else:
-            step = gls_step_woodbury
+        step = _proposal_step(cm, self.full_cov, force_f64)
 
         def proposal(x):
             r = cm.time_residuals(x, subtract_mean=False)

@@ -17,7 +17,9 @@ hooks, so the mixed step on the card takes the stacked 2n rows through
 the joint-Gram kernel (``ops/fused_gram.py``); the streaming-basis
 (fourier) step does not apply, because its basis rows are TOA-indexed.
 ``WidebandDownhillFitter`` is the step-halving fitter over the same
-stacked system.  ``full_cov=True`` (the dense step) is ROADMAP A8.
+stacked system.  With ``full_cov=True`` both take the dense step
+(``gls_step_full_cov``) over the 2n stacked rows, the downhill fitter for
+its proposal only.
 """
 
 from __future__ import annotations
@@ -28,15 +30,8 @@ from torch.func import jacfwd
 
 from pint_tpu_torch.device import F64
 from pint_tpu_torch.exceptions import PintTpuError
-from pint_tpu_torch.fitting.base import no_full_cov
-from pint_tpu_torch.fitting.downhill import DownhillFitter
-from pint_tpu_torch.fitting.gls import (
-    GLSFitter,
-    default_accel_mode,
-    gls_step_woodbury,
-    gls_step_woodbury_mixed,
-    make_cinv_mult,
-)
+from pint_tpu_torch.fitting.downhill import DownhillFitter, _proposal_step
+from pint_tpu_torch.fitting.gls import GLSFitter, make_cinv_mult
 from pint_tpu_torch.toas.bundle import get_dm_measurements, is_wideband
 
 
@@ -167,22 +162,20 @@ class WidebandTOAFitter(_WidebandKernels, GLSFitter):
 
 
 class WidebandDownhillFitter(_WidebandKernels, DownhillFitter):
-    """Step-halving wideband fitter: mixed proposals on the card for a
-    model with correlated noise (DownhillGLSFitter's policy), all-f64 on
-    the CPU and on the fallback rung; the objective is the stacked GLS
-    chi2 with the offset profiled out over the TOA rows."""
+    """Step-halving wideband fitter: DownhillGLSFitter's proposals (mixed
+    on the card for a model with correlated noise, the dense step with
+    ``full_cov=True``, all-f64 on the CPU and on the fallback rung) over
+    the stacked rows; the objective is the stacked GLS chi2 with the
+    offset profiled out over the TOA rows."""
 
     def __init__(self, toas, model, full_cov: bool = False, *, device=None):
-        no_full_cov(type(self).__name__, full_cov)
         _validate_wideband(toas)
         super().__init__(toas, model, device=device)
+        self.full_cov = full_cov
 
     def _make_proposal(self, force_f64: bool = False):
         noffset = self._noffset
-        if not force_f64 and default_accel_mode(self.cm) == "mixed":
-            step = gls_step_woodbury_mixed
-        else:
-            step = gls_step_woodbury
+        step = _proposal_step(self.cm, self.full_cov, force_f64)
 
         def proposal(x):
             r = self._combined_residuals(x)

@@ -9,8 +9,9 @@ components, through the same consumer interfaces:
   scaled_dm_sigma(pdict, bundle, sigma_dm) -> per-TOA DM-measurement
       sigma (pc cm^-3), ScaleDmError's alone
 
-The correlated covariance never forms as n x n: it enters as
-C = N + T phi T^T with k << n.  The power-law sin/cos bases depend only
+The correlated covariance enters the fit steps as C = N + T phi T^T with
+k << n; only the full-covariance step and ``noise_covariance`` form it
+as n x n (:func:`dense_noise_cov`).  The power-law sin/cos bases depend only
 on the TOA times, so they are computed once on the host in IEEE f64 numpy
 (:func:`host_fourier_basis`) and rides in the bundle's mask columns.
 """
@@ -131,6 +132,20 @@ class ScaleDmError(NoiseComponent):
         return efac * torch.sqrt(torch.square(sigma_dm) + equad2)
 
 
+def dense_noise_cov(Ndiag, T, phi):
+    """Dense (n, n) noise covariance C = diag(Ndiag) + T diag(phi) T^T,
+    shared by ``CompiledModel.noise_covariance`` and the full-covariance
+    GLS step.  Built as (T phi) T^T with Ndiag added to its diagonal in
+    place: the reference's sums (0 + x off the diagonal, Ndiag + x on
+    it), in one n x n tensor where diag + product holds three.  ``T``
+    None gives the diagonal alone."""
+    if T is None:
+        return torch.diag(Ndiag)
+    C = (T * phi[None, :]) @ T.T
+    C.diagonal().add_(Ndiag)
+    return C
+
+
 def quantize_epochs(mjd: np.ndarray, select: np.ndarray,
                     gap_s: float = ECORR_EPOCH_GAP_S) -> np.ndarray:
     """Host-side (n, n_epoch) 0/1 quantization matrix U grouping the
@@ -225,6 +240,18 @@ def fourier_basis(bundle, nharm: int, mask_key: str | None = None):
         arg = 2.0 * math.pi * t[:, None] * f[None, :]
         F = torch.cat([torch.sin(arg), torch.cos(arg)], dim=1)
     return F, torch.cat([f, f]), tspan
+
+
+def fourier_basis_rows(bundle, freqs, day0):
+    """[sin | cos] rows (j, 2 nharm) of a frozen Fourier basis for
+    appended TOAs: the streaming solver's new basis rows, at the base
+    span's harmonic frequencies ``freqs`` (nharm,) and epoch day ``day0``
+    (both frozen at the stream's last refresh, never recomputed from the
+    appended rows), so they land in the columns the absorbed Gram state
+    already spans.  Layout of :func:`fourier_basis`; f64 on the device."""
+    t = (bundle.tdb_day - day0) * 86400.0 + bundle.tdb_sec.to_float()
+    arg = 2.0 * math.pi * t[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(arg), torch.cos(arg)], dim=1)
 
 
 def host_fourier_basis(toas, nharm: int) -> np.ndarray:

@@ -401,6 +401,17 @@ class CompiledModel:
             torch.ones(1, dtype=F64, device=self.device) * 1e-30,
         )
 
+    def noise_covariance(self, x):
+        """Dense (n, n) noise covariance C = diag(N) + T phi T^T
+        (``models/noise.py::dense_noise_cov``): O(n^2) memory, for
+        diagnostics and small n."""
+        from pint_tpu_torch.models.noise import dense_noise_cov
+
+        Ndiag = torch.square(self.scaled_sigma(x))
+        bw = self.noise_basis(x)
+        T, phi = bw if bw is not None else (None, None)
+        return dense_noise_cov(Ndiag, T, phi)
+
     def noise_fourier_spec(self, x):
         """(t_seconds, freqs, phi) when the model's correlated noise is
         exactly one pure-Fourier basis (power-law red noise), the shape

@@ -15,15 +15,23 @@ Knobs, read at every call:
 - ``PINT_TPU_TORCH_FUSED_INTERIOR``: ``0`` keeps the unfused
   ``gram32_joint`` everywhere; ``force`` routes the CPU through the fused
   dispatcher too, which there takes the kernel's plain version.
+- ``PINT_TPU_TORCH_STREAM_DRIFT_RTOL``: the streaming solver's drift
+  check (:func:`stream_drift_rtol`).
 
-The equilibrated f32 factor of every refined solve is the native
-``torch.linalg.cholesky_ex`` (``ops/ffgram.py::nan_cholesky``) at every
-size.  The reference hands operands of 2048 or more rows to its blocked
-``fast_cholesky32``: a speed choice for the TPU, where the native
-factorization compiles slowly.  Either factor serves only as the
-preconditioner of the f64-refined solve, whose residual check stays
-armed, so the result keeps the reference's contract (ROADMAP A8 ports
-the blocked factorization).
+The equilibrated f32 factor of every refined solve is chosen by its size
+(:func:`ir_cholesky`): the native ``torch.linalg.cholesky_ex``
+(``ops/ffgram.py::nan_cholesky``) below :data:`IR_BLOCKED_MIN`, the blocked
+``parallel/dense.py::fast_cholesky32`` at or above it.  The reference
+hands operands of 2048 or more rows to the blocked factor, a speed
+choice for the TPU.  On an NVIDIA H100 80GB HBM3 at 700 W
+(``chip_smoke.py`` phase 11) the native f32 factor of the dense step's
+equilibrated covariance took 9.66, 46.1 and 296 ms at n = 8192, 16384
+and 32768, ``fast_cholesky32`` 15.1, 79.1 and 507 ms: no crossover up
+to 32768, so :data:`IR_BLOCKED_MIN` is None and every size takes the
+native factor (the smoke script checks the route against its own
+timings each run).  Either factor serves only as the preconditioner of
+the f64-refined solve, whose residual check stays armed, so the result
+keeps the reference's contract.
 """
 
 from __future__ import annotations
@@ -31,6 +39,10 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
+
+#: smallest equilibrated operand whose refined solve factors with the
+#: blocked ``fast_cholesky32``; None: the native factor at every size
+IR_BLOCKED_MIN: int | None = None
 
 #: default relative residual-check tolerance: a converged refinement sits
 #: at the ~1e-7 split-matmul floor, a stalled one at O(1)
@@ -63,6 +75,44 @@ def check_rtol(device) -> float | None:
         os.environ.get("PINT_TPU_TORCH_SOLVE_IR_RTOL",
                        str(DEFAULT_CHECK_RTOL))
     )
+
+
+def ir_cholesky(n: int, device):
+    """The equilibrated-f32 factorization of an (n, n) refined solve on
+    ``device``: None (the native factor inside ``chol_solve_ir`` and
+    ``woodbury_chol_solve_ir``) below :data:`IR_BLOCKED_MIN` or when the
+    policy is off, ``fast_cholesky32`` at or above it."""
+    if (not ir_active(device) or IR_BLOCKED_MIN is None
+            or n < IR_BLOCKED_MIN):
+        return None
+    from pint_tpu_torch.parallel.dense import fast_cholesky32
+
+    return fast_cholesky32
+
+
+#: default residual-check tolerance of the streaming solves: a maintained
+#: factor carries update roundoff, so the check is armed on every device
+DEFAULT_STREAM_RTOL = 1e-5
+
+
+def stream_factor_dtype(device):
+    """dtype of the streaming solver's maintained Cholesky factor
+    (``ops/cholupdate.py``): equilibrated f32 with f64 refinement where
+    the refined-solve policy applies (the card), f64 elsewhere; the same
+    ``PINT_TPU_TORCH_SOLVE_IR`` switch (``0`` keeps f64 everywhere,
+    ``force`` takes f32 on the CPU)."""
+    import torch
+
+    return torch.float32 if ir_active(device) else torch.float64
+
+
+def stream_drift_rtol() -> float:
+    """Residual-check tolerance of the streaming drift guard
+    (``PINT_TPU_TORCH_STREAM_DRIFT_RTOL``), armed on every device: both
+    streaming solves NaN-poison past it and the solve returns its input
+    state."""
+    return float(os.environ.get("PINT_TPU_TORCH_STREAM_DRIFT_RTOL",
+                                str(DEFAULT_STREAM_RTOL)))
 
 
 def fused_interior_setting() -> str:

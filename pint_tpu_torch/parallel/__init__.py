@@ -1,1 +1,2 @@
-"""Batching over pulsars (``pta.py``); the multi-GPU mesh is ROADMAP A8."""
+"""Batching over pulsars (``pta.py``) and the blocked dense factorization
+on one device (``dense.py``); the multi-GPU mesh is ROADMAP A8."""

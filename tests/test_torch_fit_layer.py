@@ -46,7 +46,10 @@ from pint_tpu_torch.fitting import (  # noqa: E402
     auto_fitter,
     ftest,
 )
-from pint_tpu_torch.fitting.base import device_noise_floor  # noqa: E402
+from pint_tpu_torch.fitting.base import (  # noqa: E402
+    design_with_offset,
+    device_noise_floor,
+)
 from pint_tpu_torch.fitting.downhill import (  # noqa: E402
     DownhillFitter,
     _ladder_lams,
@@ -81,6 +84,9 @@ PEPOCH           55000
 DM               3.1380             1
 """
 RED = "TNREDAMP -13.0\nTNREDGAM 3.0\nTNREDC 10\n"
+#: the dense-step cases: _white()'s TOAs under PAR ("white") and under
+#: PAR + RED ("red")
+DENSE_CASES = ("white", "red")
 
 
 def kahan(p):
@@ -154,6 +160,14 @@ for case in ("scatter", "level", "one_nan", "three_finite"):
         DownhillFitter._chi2_noise_floor(lams, c))
 for i, args in enumerate({FTEST_CASES!r}):
     OUT[f"ftest/{{i}}"] = np.asarray(ftest(*args))
+from pint_tpu.fitting.gls import gls_step_full_cov
+for case in {DENSE_CASES!r}:
+    args = [jnp.asarray(inp[f"dense/{{case}}/{{i}}"]) for i in range(5)]
+    dx, (covn, _), chi2, _ = gls_step_full_cov(*args, method="f64",
+                                               normalized_cov=True)
+    OUT[f"dense/{{case}}/dx"] = np.asarray(dx)
+    OUT[f"dense/{{case}}/covn"] = np.asarray(covn)
+    OUT[f"dense/{{case}}/chi2"] = np.asarray(chi2)
 
 
 def load(stem):
@@ -203,6 +217,9 @@ def ref(tmp_path_factory):
                        f"wls/{case}/w": w})
     for case, (lams, c) in floor_inputs().items():
         arrays.update({f"floor/{case}/lams": lams, f"floor/{case}/c": c})
+    for case in DENSE_CASES:
+        for i, a in enumerate(_dense_inputs(case)):
+            arrays[f"dense/{case}/{i}"] = a.numpy()
     np.savez(d / "inputs.npz", **arrays)
     return run_reference(_SCRIPT, d / "fit_layer.npz",
                          env={"FIT_LAYER_INPUTS": str(d / "inputs.npz")},
@@ -308,16 +325,20 @@ def test_fitter_positional_parameters_are_the_references(cls):
     assert sig["device"].kind is inspect.Parameter.KEYWORD_ONLY
 
 
-def test_glsfitter_full_cov_is_refused_as_the_reference_does():
+def test_glsfitter_full_cov_is_refused_as_the_reference_does(ref):
     """``GLSFitter(t, m, True, True)``: the reference's PintTpuError (the
-    fused and mixed paths are reduced-rank); ``full_cov=True`` alone
-    names ROADMAP A8."""
+    fused and mixed paths are reduced-rank), the one full_cov refusal
+    left; ``full_cov=True`` alone builds a fitter whose first step is the
+    reference's dense step on the same inputs (dx within 1e-10 of its
+    largest component, chi2 and the normalized covariance 1e-10
+    relative)."""
     model, toas = _white()
     for fused in (True, "mixed"):
         with pytest.raises(PintTpuError, match="mutually exclusive"):
             GLSFitter(toas, model, True, fused, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        GLSFitter(toas, model, True, device="cpu")
+    f = GLSFitter(toas, model, True, device="cpu")
+    assert f.full_cov and f._step_mode() == "full_cov"
+    _assert_dense_step(ref, f._gn_step(f.cm.x0(), "full_cov"), "white")
     f = GLSFitter(toas, model, False, False, device="cpu")
     assert f.fused is False
 
@@ -403,6 +424,31 @@ def _white(n=200, seed=1, f0_offset=0.0, par=PAR):
         f0 = model.params["F0"]
         f0.set_internal(f0.internal() + f0_offset)
     return model, toas
+
+
+def _dense_inputs(case):
+    """(r, M, Ndiag, T, phi) of the first step of a fitter of
+    ``_white()``'s TOAs under PAR or PAR + RED, from the par values."""
+    model, toas = _white(par=PAR if case == "white" else PAR + RED)
+    cm = model.compile(toas, device="cpu")
+    x0 = cm.x0()
+    return (cm.time_residuals(x0, subtract_mean=False),
+            design_with_offset(cm, x0), torch.square(cm.scaled_sigma(x0)),
+            *cm.noise_basis_or_empty(x0))
+
+
+def _assert_dense_step(ref, step, case):
+    """A fitter's first step ``(x0 + dx, (covn, norm), chi2, nbad)`` from
+    x0 = 0 against the reference's f64 dense step of ``case``: dx within
+    1e-10 of its largest component, the normalized covariance 1e-10,
+    chi2 (where given) 1e-10 relative."""
+    xn, (covn, _), chi2, _ = step
+    key = f"dense/{case}"
+    assert _rel(xn, ref[key + "/dx"][1:]) <= 1e-10
+    assert _rel(covn, ref[key + "/covn"]) <= 1e-10
+    if chi2 is not None:
+        assert float(chi2) == pytest.approx(float(ref[key + "/chi2"]),
+                                            rel=1e-10)
 
 
 def _values(f):
@@ -500,17 +546,23 @@ def test_auto_fitter_selection(par, downhill, cls):
     assert type(f) is cls and f.device == torch.device("cpu")
 
 
-def test_auto_fitter_refuses_wideband_and_full_cov():
+def test_auto_fitter_refuses_wideband_and_full_cov(ref):
     """Wideband TOAs (every TOA flagged with pp_dm) go to the wideband
-    fitters, which refuse them without pp_dme errors; the
-    dense-covariance downhill step names A8."""
+    fitters, which refuse them without pp_dme errors.  full_cov is no
+    longer refused: the dense-covariance downhill fitter's first proposal
+    is the reference's dense step on the same inputs (1e-10), and
+    auto_fitter passes full_cov through as the reference's does."""
     model, toas = _white()
     wide = dict(toas, flags=[dict(f, pp_dm="3.1") for f in toas["flags"]])
     with pytest.raises(PintTpuError, match="pp_dme"):
         auto_fitter(wide, model, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        DownhillGLSFitter(toas, get_model(PAR + RED), device="cpu",
+    f = DownhillGLSFitter(toas, get_model(PAR + RED), device="cpu",
                           full_cov=True)
+    x0 = f.cm.x0()
+    dx, cov, nbad, _ = f._make_proposal()(x0)
+    _assert_dense_step(ref, (x0 + dx, cov, None, nbad), "red")
+    g = auto_fitter(toas, get_model(PAR + RED), full_cov=True, device="cpu")
+    assert type(g) is DownhillGLSFitter and g.full_cov
 
 
 def test_nan_proposal_is_served_by_the_f64_rung():

@@ -299,6 +299,94 @@ def test_compositions_hold_no_host_read(no_host_reads, monkeypatch, par):
     assert bool(torch.all(torch.isfinite(out[0])))
 
 
+def _mixed_full_cov(monkeypatch):
+    """The card's full_cov method on the CPU: the mixed dense step, its
+    refined solves armed."""
+    from pint_tpu_torch.fitting import gls
+
+    _card_route(monkeypatch)
+    monkeypatch.setattr(gls, "full_cov_method",
+                        lambda device, method=None: method or "mixed")
+
+
+@pytest.mark.parametrize("fused", ["auto", False])
+def test_full_cov_steps_hold_no_host_read(no_host_reads, monkeypatch,
+                                          fused):
+    """GLSFitter(full_cov=True): the mixed dense step (the card's, the
+    equilibrated f32 covariance refined with the true operator) and the
+    f64 dense step (fused=False: the n x n f64 factor, then the eigh
+    host call)."""
+    _mixed_full_cov(monkeypatch)
+    model, toas = _bench()
+    f = GLSFitter(toas, model, True, fused, device="cpu")
+    assert f._full_cov_method() == ("f64" if fused is False else "mixed")
+    chi2 = _quiet(f.fit_toas, maxiter=2)
+    assert math.isfinite(chi2) and f.steps_taken == len(no_host_reads) >= 1
+    assert f.mode == "full_cov" and f.guard_report.rung == "cpu-full_cov"
+
+
+@pytest.mark.parametrize("wideband", [False, True])
+def test_full_cov_downhill_iteration_holds_no_host_read(no_host_reads,
+                                                        monkeypatch,
+                                                        wideband):
+    """One downhill iteration with the mixed dense proposal, and the final
+    proposal: DownhillGLSFitter on bench.py's pulsar, and
+    WidebandDownhillFitter on golden17's composition with DM measurements
+    (the dense step over the 2n stacked rows)."""
+    from pint_tpu_torch.fitting import WidebandDownhillFitter
+
+    _mixed_full_cov(monkeypatch)
+    if wideband:
+        text = (Path(__file__).parent / "datafile" / "golden17.par"
+                ).read_text()
+        model, toas = _quiet(make_test_pulsar, text, ntoa=128,
+                             start_mjd=53000.0, end_mjd=57500.0, seed=0,
+                             iterations=1, orbit=True, orbit_in_phase=True,
+                             freqs=MSP_FREQS, dm_error=2e-4, device="cpu")
+        f = WidebandDownhillFitter(toas, model, True, device="cpu")
+    else:
+        model, toas = _bench()
+        f = DownhillGLSFitter(toas, model, True, device="cpu")
+    assert math.isfinite(_quiet(f.fit_toas, maxiter=1))
+    assert f.guard_report.rung == "native" and len(no_host_reads) == 2
+
+
+@pytest.mark.parametrize("factor", ["f32", "f64"])
+def test_stream_append_and_solve_hold_no_host_read(no_host_reads,
+                                                   monkeypatch, factor):
+    """The streaming solver's append (the additive blocks and the rank-j
+    update of the maintained factor, column by column) and solve (the
+    refined solves, the linearized advance, the drift rollback), each as
+    a step program, with the card's f32 factor and with the CPU's f64."""
+    from pint_tpu_torch.fitting import gls
+    from pint_tpu_torch.ops import solve_policy
+
+    if factor == "f32":
+        monkeypatch.setenv("PINT_TPU_TORCH_SOLVE_IR", "force")
+    rng = np.random.default_rng(7)
+    n, p, k = 96, 5, 8
+    M = torch.as_tensor(rng.standard_normal((n, p)))
+    r = torch.as_tensor(rng.standard_normal(n) * 1e-3)
+    Ninv = torch.as_tensor(rng.uniform(0.5, 2.0, n))
+    T = torch.as_tensor(rng.standard_normal((n, k)))
+    phi = torch.as_tensor(rng.uniform(0.1, 10.0, k))
+    st = gls.stream_state_init(r[:64], M[:64], Ninv[:64], T[:64], phi,
+                               torch.zeros(p - 1, dtype=F64))
+    leaves, rebuild = graphs.flatten(st)
+    append = graphs.StepProgram(
+        lambda *a: gls.stream_state_append(rebuild(list(a[:-4])), *a[-4:]),
+        "cpu")
+    solve = graphs.StepProgram(
+        lambda *a: gls.stream_state_solve(
+            rebuild(list(a)), 1, check_rtol=solve_policy.stream_drift_rtol()),
+        "cpu")
+    st = append(*leaves, r[64:], M[64:], Ninv[64:], T[64:])
+    out, dx, _, chi2 = solve(*graphs.flatten(st)[0])
+    assert len(no_host_reads) == 2
+    assert st["sig_L"].dtype == (torch.float32 if factor == "f32" else F64)
+    assert bool(torch.all(torch.isfinite(dx))) and math.isfinite(float(chi2))
+
+
 def test_no_host_reads_catches_reads():
     """The mode itself: each kind of read raises; host_call passes eigh."""
     t = torch.ones(3, dtype=F64)

@@ -469,6 +469,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((REPO / "pint_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    names = {f.relative_to(REPO).as_posix() for f in files}
+    assert {"pint_tpu_torch/parallel/dense.py",
+            "pint_tpu_torch/ops/cholupdate.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

@@ -58,6 +58,8 @@ SW_SEED = 11
 
 _SCRIPT = textwrap.dedent(f"""
 import warnings
+import jax.numpy as jnp
+from pint_tpu.fitting.gls import gls_step_full_cov
 from pint_tpu.fitting.wideband import WidebandTOAFitter
 from pint_tpu.models.builder import get_model, get_model_and_toas
 
@@ -96,13 +98,29 @@ for f in toas.flags:
     f["pp_dm"] = repr(float(15.0 + rng.normal(0.0, 2e-4)))
     f["pp_dme"] = "2e-4"
 record("sw", model, toas)
+
+# the f64 dense step on the port's stacked 40-TOA wideband system
+inp = np.load(os.environ["WB_DENSE_INPUTS"])
+dx, (covn, _), chi2, _ = gls_step_full_cov(
+    *(jnp.asarray(inp[str(i)]) for i in range(5)), method="f64",
+    normalized_cov=True)
+OUT["dense/dx"] = np.asarray(dx)
+OUT["dense/covn"] = np.asarray(covn)
+OUT["dense/chi2"] = np.asarray(chi2)
 """)
 
 
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
     d = tmp_path_factory.mktemp("wideband")
-    return run_reference(_SCRIPT, d / "wb.npz", timeout=900)
+    model, toas = _wb_table(n=40)
+    f = WidebandTOAFitter(toas, model, device="cpu")
+    x0 = f.cm.x0()
+    args = (*f._step_inputs(x0), *f._step_noise(x0))
+    np.savez(d / "dense.npz", **{str(i): a.numpy()
+                                 for i, a in enumerate(args)})
+    return run_reference(_SCRIPT, d / "wb.npz", timeout=900,
+                         env={"WB_DENSE_INPUTS": str(d / "dense.npz")})
 
 
 def _state(ref, name):
@@ -344,10 +362,14 @@ def test_auto_fitter_routes_wideband():
         WidebandDownhillFitter)
 
 
-def test_wideband_refusals():
+def test_wideband_refusals(ref):
     """The reference's refusals: narrowband TOAs, a missing pp_dme,
-    fused=True (the streaming basis is TOA-indexed); and full_cov=True,
-    which names ROADMAP A8 here."""
+    fused=True (the streaming basis is TOA-indexed).  full_cov=True is no
+    refusal: both fitters take the dense step over the 2n stacked rows,
+    their first step (WidebandDownhillFitter's first proposal) the
+    reference's f64 dense step on the same inputs: dx within 1e-10 of
+    its largest component, the normalized covariance 1e-10 and chi2
+    1e-10 relative."""
     model, toas = _wb_table(n=40)
     narrow = dict(toas, flags=[{"f": f["f"]} for f in toas["flags"]])
     with pytest.raises(PintTpuError, match="pp_dm"):
@@ -358,9 +380,16 @@ def test_wideband_refusals():
         WidebandTOAFitter(missing, model, device="cpu")
     with pytest.raises(PintTpuError, match="stacked"):
         WidebandTOAFitter(toas, model, device="cpu", fused=True)
-    for cls in (WidebandTOAFitter, WidebandDownhillFitter):
-        with pytest.raises(NotImplementedError, match="A8"):
-            cls(toas, model, device="cpu", full_cov=True)
+    f = WidebandTOAFitter(toas, model, device="cpu", full_cov=True)
+    x0 = f.cm.x0()
+    xn, (covn, _), chi2, _ = f._gn_step(x0, f._step_mode())
+    assert _rel(xn.numpy(), ref["dense/dx"][1:]) <= 1e-10
+    assert _rel(covn.numpy(), ref["dense/covn"]) <= 1e-10
+    assert float(chi2) == pytest.approx(float(ref["dense/chi2"]), rel=1e-10)
+    d = WidebandDownhillFitter(toas, model, device="cpu", full_cov=True)
+    dx, (covn, _), _, _ = d._make_proposal()(x0)
+    assert _rel(dx.numpy(), ref["dense/dx"][1:]) <= 1e-10
+    assert _rel(covn.numpy(), ref["dense/covn"]) <= 1e-10
 
 
 def test_dmjump_absorbs_receiver_offset():
