@@ -162,6 +162,27 @@ Phases, each of which raises on failure (exit code != 0):
    init on all rows and the solve at the step gates of the f64 Woodbury
    step on all rows; an append and a solve timed eager and graphed
    (bitwise) beside the graphed full mixed step of phases 5 and 6.
+13. inference, no kernel launched on any of its paths: bench.py's pulsar
+   at 1e5 TOAs simulated with its orbit in phase (five free timing
+   parameters, 30-harmonic red noise marginalized), fitted by GLSFitter
+   (f64) for the gates; ``BayesianTiming.lnposterior`` over 64 walkers
+   as one step program (CUDA-event and host time, the capture's peak,
+   the eager call beside it), held to single evaluations and, on a
+   2048-TOA copy, to the CPU (rel 1e-10, abs 1e-6); one stretch step
+   card vs CPU from the same walkers and draws; ``MCMCFitter.fit_toas``
+   (64 walkers) with every step a replay of one program (acceptance,
+   autocorrelation time, ESS, split-R-hat, time a step, host time,
+   peak), each posterior mean within 5 sigma of the GLS fit and each
+   std within 60% of its GLS sigma; ``sample_nested`` with uniform
+   priors at +-10 GLS sigma (logz, ncall, iterations, time), each mean
+   within 3 sigma; on the binary MSP at 1e5 TOAs ``grid_chisq`` over
+   M2 x SINI (8 x 8 about the truth, 2 refits of the other 165 free
+   parameters, chunks sized by ``grid_chunk``), its minimum in the
+   truth's cell or next to it, and a 3 x 3 grid on a 2048-TOA copy card
+   vs CPU within 1e-8; 1e6 photon phases drawn from a two-Gaussian
+   ``LCTemplate`` and fitted by ``LCFitter`` within 5 errors of the
+   truth, the log-likelihood card vs CPU within 1e-10 and H and Z^2_4
+   within 1e-9.
 
 Every fit above runs its steps as replays of step programs
 (``runtime/graphs.py``: CUDA graphs captured once, after one eager
@@ -190,8 +211,9 @@ MSP's shapes, with its launches in the MSP's fits, and under ``bench``
 the same numbers at bench.py's pulsar; ``fused_gram_joint`` also with
 the launches of the downhill fits of phase 7, under ``full_width``
 its q = 350 entry with the launches of phase 8's fits, under
-``wideband`` and ``pta`` those of phases 9 and 10, and under ``dense``
-and ``stream`` phases 11 and 12's results with their zero launches),
+``wideband`` and ``pta`` those of phases 9 and 10, and under ``dense``,
+``stream`` and ``inference`` phases 11, 12 and 13's results with their
+zero launches),
 nvidia-smi's
 name and power limit, and ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the package beside it, the script exits non-zero
@@ -246,6 +268,17 @@ from pint_tpu_torch.fitting.spread import (  # noqa: E402
     step_inputs,
 )
 from pint_tpu_torch.fitting.wls import _qr_gate, _wls_step  # noqa: E402
+from pint_tpu_torch.bayesian import BayesianTiming  # noqa: E402
+from pint_tpu_torch.eventstats import hm, z2m  # noqa: E402
+from pint_tpu_torch.fitting.base import design_with_offset, noffset  # noqa: E402
+from pint_tpu_torch.gridutils import grid_chisq, grid_chunk  # noqa: E402
+from pint_tpu_torch.models.priors import UniformBoundedRV  # noqa: E402
+from pint_tpu_torch.sampler import MCMCFitter, make_stretch_step  # noqa: E402
+from pint_tpu_torch.templates import (  # noqa: E402
+    LCFitter,
+    LCGaussian,
+    LCTemplate,
+)
 from pint_tpu_torch.exceptions import PintTpuError  # noqa: E402
 from pint_tpu_torch.models.builder import get_model  # noqa: E402
 from pint_tpu_torch.models.noise import (  # noqa: E402
@@ -1913,6 +1946,308 @@ def stream_phase(dev, bench_toas, msp_toas):
     return out
 
 
+#: phase 13: walkers, steps and the nested sampler's settings on bench.py's
+#: pulsar, the grid's side on the binary MSP, photons in the template fit
+INF_WALKERS = 64
+INF_STEPS = 1000
+INF_NESTED = dict(nlive=150, dlogz=0.2, seed=5)
+INF_GRID = 8
+INF_PHOTONS = 1_000_000
+#: bench.py's pulsar simulated with the orbit inside its phases, so its
+#: posterior sits at the par values (SIM's adds it after the simulation)
+SIM_IN_PHASE = dict(SIM, orbit_in_phase=True)
+
+
+def x_gaps(fitted, start, names):
+    """x-space deltas of ``fitted``'s values from ``start``'s (internal
+    units; a double-double value differenced in double-double)."""
+    out = []
+    for n in names:
+        a, b = fitted.params[n].internal(), start.params[n].internal()
+        d = a - b
+        out.append(float(d.to_float()) if hasattr(d, "to_float")
+                   else float(d))
+    return np.asarray(out)
+
+
+def close(a, b, rtol, atol=0.0):
+    """Largest |a - b| - (atol + rtol |b|) over the entries (<= 0 holds)."""
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.max(np.abs(a - b) - (atol + rtol * np.abs(b))))
+
+
+def inference_launches(label):
+    got = read_counts()
+    check(not any(got.values()),
+          f"{label}: a kernel launched on an inference path: {got}")
+    return got
+
+
+def stretch_card_vs_cpu(par, ntoa, nwalkers, sig):
+    """One stretch step of the vmapped log-posterior on a small copy, the
+    card against the CPU from the same walkers and the same draws."""
+    model, toas = make_test_pulsar(par, ntoa=ntoa, **SIM_IN_PHASE)
+    rng = np.random.default_rng(13)
+    d = len(sig)
+    walkers = rng.standard_normal((nwalkers, d)) * sig
+    half = nwalkers // 2
+    draws = [rng.uniform(size=half), rng.integers(0, half, half),
+             rng.uniform(size=half), rng.uniform(size=half),
+             rng.integers(0, half, half), rng.uniform(size=half)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        bt = BayesianTiming(model, toas, device=dev)
+        lnpost_v = torch.func.vmap(bt.lnposterior)
+        step = make_stretch_step(lnpost_v, d, nwalkers)
+        w = torch.as_tensor(walkers, device=dev)
+        out[dev] = [t.cpu().numpy() for t in step(
+            w, lnpost_v(w), *(torch.as_tensor(v, device=dev)
+                              for v in draws))]
+    gaps = dict(walkers=close(out["cuda"][0], out["cpu"][0], 1e-12),
+                lp=close(out["cuda"][1], out["cpu"][1], 1e-10, 1e-6),
+                accepted=[int(out["cuda"][2]), int(out["cpu"][2])])
+    check(gaps["walkers"] <= 0 and gaps["lp"] <= 0
+          and gaps["accepted"][0] == gaps["accepted"][1],
+          f"stretch step card vs CPU: {gaps}")
+    return gaps
+
+
+def bench_inference(dev):
+    """bench.py's pulsar at 1e5 TOAs: the batched log-posterior, the MCMC
+    fit, nested sampling, each held to a GLSFitter fit of the same TOAs."""
+    out = {}
+    model, toas = make_test_pulsar(BENCH_PAR, ntoa=NTOA, device=dev,
+                                   **SIM_IN_PHASE)
+    t0 = time.perf_counter()
+    g = GLSFitter(toas, model, device=dev, fused=False)
+    g.fit_toas()
+    out["gls_fit_s"] = time.perf_counter() - t0
+    names = list(g.cm.free_names)
+    sig = np.sqrt(np.diag(g.parameter_covariance_matrix))
+    gls_x = x_gaps(model, get_model(BENCH_PAR), names)
+    log(f"inference: GLSFitter (f64) on bench's pulsar in phase, x "
+        f"{gls_x.tolist()}, sigma {sig.tolist()}")
+
+    # the batched log-posterior: 64 walkers, one program
+    zero_counts()
+    bt = BayesianTiming(get_model(BENCH_PAR), toas, device=dev)
+    rng = np.random.default_rng(11)
+    X = torch.as_tensor(gls_x + rng.standard_normal((INF_WALKERS, len(sig)))
+                        * sig, device=dev)
+    prog = bt.lnposterior_batch(INF_WALKERS)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lp = prog(X)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    check(bool(torch.isfinite(lp).all()), "lnposterior batch: not finite")
+    loop = torch.stack([bt.lnposterior(x) for x in X[:4]])
+    check(close(lp[:4].cpu(), loop.cpu(), 1e-12, 1e-9) <= 0,
+          "lnposterior batch differs from single evaluations")
+    ev = event_ms(lambda: prog(X), reps=5)
+    eager = event_ms(lambda: torch.func.vmap(bt.lnposterior)(X), reps=3)
+    out["lnposterior_batch"] = dict(
+        walkers=INF_WALKERS, ms=ev["ms"], host_ms=ev["host_ms"],
+        capture_peak_bytes=peak, pool_bytes=prog.pool_reserved,
+        graphs=len(prog.segments), eager_ms=eager["ms"],
+        eager_host_ms=eager["host_ms"],
+        eager_peak_extra_bytes=eager["peak_extra_bytes"])
+    log(f"inference: lnposterior over {INF_WALKERS} walkers at {NTOA} "
+        f"TOAs, one program: {out['lnposterior_batch']}")
+    out["lnposterior_launches"] = inference_launches("lnposterior batch")
+
+    # card vs CPU on the 2048-TOA copy, at the reference test's gate
+    sm, stoas = make_test_pulsar(BENCH_PAR, ntoa=2048, **SIM_IN_PHASE)
+    Xs = gls_x + rng.standard_normal((16, len(sig))) * sig
+    vals = {}
+    for d in ("cuda", "cpu"):
+        b = BayesianTiming(sm, stoas, device=d)
+        vals[d] = torch.func.vmap(b.lnposterior)(
+            torch.as_tensor(Xs, device=d)).cpu().numpy()
+    out["lnposterior_card_vs_cpu"] = close(vals["cuda"], vals["cpu"], 1e-10,
+                                           1e-6)
+    check(out["lnposterior_card_vs_cpu"] <= 0,
+          f"lnposterior card vs CPU: {vals}")
+    out["stretch_card_vs_cpu"] = stretch_card_vs_cpu(BENCH_PAR, 2048, 16,
+                                                     sig * 10.0)
+
+    # the MCMC fit: every step a replay of one program
+    zero_counts()
+    mm = get_model(BENCH_PAR)
+    mf = MCMCFitter(toas, mm, device=dev)
+    cache = mf.bt.cm.programs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mf.fit_toas(nsteps=INF_STEPS, nwalkers=INF_WALKERS, seed=0)
+    host_s = time.perf_counter() - t0
+    diag = mf.convergence_diagnostics()
+    post = mf.chain[int(0.25 * INF_STEPS):].reshape(-1, len(sig))
+    mean, std = post.mean(axis=0), post.std(axis=0)
+    out["mcmc"] = dict(
+        nsteps=INF_STEPS, nwalkers=INF_WALKERS, host_s=host_s,
+        step_ms=host_s / INF_STEPS * 1e3,
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        programs=programs_ran("MCMCFitter", cache, INF_STEPS, 1),
+        acceptance=mf.acceptance, tau=diag["tau"].tolist(),
+        ess=diag["ess"].tolist(), rhat=diag["rhat"].tolist(),
+        mean_gap_sigma=((mean - gls_x) / sig).tolist(),
+        std_over_sigma=(std / sig).tolist())
+    log(f"inference: MCMCFitter {INF_STEPS} steps x {INF_WALKERS} walkers: "
+        f"{out['mcmc']}")
+    out["mcmc_launches"] = inference_launches("MCMCFitter")
+    check(0.05 < mf.acceptance < 0.95, f"MCMC acceptance {mf.acceptance}")
+    check(np.all(np.abs(mean - gls_x) < 5.0 * sig),
+          f"MCMC means off the GLS fit: {out['mcmc']['mean_gap_sigma']}")
+    check(np.all(np.abs(std - sig) <= 0.6 * sig),
+          f"MCMC stds off the GLS sigmas: {out['mcmc']['std_over_sigma']}")
+
+    # nested sampling with UniformBoundedRV priors at +-10 GLS sigma
+    zero_counts()
+    priors = {n: UniformBoundedRV(-10.0 * s, 10.0 * s)
+              for n, s in zip(names, sig)}
+    bn = BayesianTiming(get_model(BENCH_PAR), toas, priors=priors,
+                        device=dev)
+    cache = bn.cm.programs
+    t0 = time.perf_counter()
+    res = bn.sample_nested(**INF_NESTED)
+    host_s = time.perf_counter() - t0
+    mean = res["samples"].mean(axis=0)
+    out["nested"] = dict(
+        **INF_NESTED, logz=res["logz"], logzerr=res["logzerr"],
+        niter=res["niter"], ncall=res["ncall"], host_s=host_s,
+        replays=cache.replays, captures=cache.captures,
+        mean_gap_sigma=((mean - gls_x) / sig).tolist(),
+        std_over_sigma=(res["samples"].std(axis=0) / sig).tolist())
+    log(f"inference: nested sampling: {out['nested']}")
+    out["nested_launches"] = inference_launches("sample_nested")
+    check(np.isfinite(res["logz"]), "nested logz not finite")
+    check(np.all(np.abs(mean - gls_x) < 3.0 * sig),
+          f"nested means off the GLS fit: {out['nested']['mean_gap_sigma']}")
+    return out
+
+
+def grid_inference(dev, msp_toas):
+    """The binary MSP at 1e5 TOAs: chi2 over M2 x SINI around the truth
+    with 2 refits of the other free parameters, chunked; and a 2048-TOA
+    copy card vs CPU."""
+    par = msp_par(MSP_NDMX, seed=0)
+    m = get_model(par)
+    cm = m.compile(msp_toas, device=dev)
+    x = cm.x0()
+    _, (covn, norm), _ = _wls_step(
+        torch.zeros(cm.bundle.ntoa, dtype=torch.float64, device=dev),
+        design_with_offset(cm, x), 1.0 / torch.square(cm.scaled_sigma(x)),
+        normalized_cov=True)
+    cov = (covn / torch.outer(norm, norm)).cpu().numpy()
+    no = noffset(cm)
+    sig = {n: float(np.sqrt(cov[no + cm._index[n], no + cm._index[n]]))
+           for n in ("M2", "SINI")}
+    m2, sini = float(m.params["M2"].value), float(m.params["SINI"].value)
+    offs = np.arange(INF_GRID) - (INF_GRID - 1) / 2.0  # truth between 3, 4
+    ds = min(sig["SINI"], 0.9 * (1.0 - sini) / offs[-1])
+    grid = {"M2": m2 + offs * sig["M2"], "SINI": sini + offs * ds}
+    chunk = grid_chunk(cm, INF_GRID ** 2)
+    del cm, covn, norm
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    chi2 = grid_chisq(msp_toas, m, grid, device=dev, chunk=chunk)
+    host_s = time.perf_counter() - t0
+    i, j = np.unravel_index(np.argmin(chi2), chi2.shape)
+    lo, hi = INF_GRID // 2 - 2, INF_GRID // 2 + 1
+    out = dict(points=INF_GRID ** 2, chunk=chunk, host_s=host_s,
+               point_ms=host_s / INF_GRID ** 2 * 1e3,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               sigma=sig, sini_step=ds, argmin=[int(i), int(j)],
+               chi2_min=float(chi2.min()),
+               chi2_span=float(chi2.max() - chi2.min()))
+    log(f"inference: grid_chisq M2 x SINI {INF_GRID}x{INF_GRID} on the "
+        f"binary MSP at {NTOA} TOAs, 2 refits: {out}")
+    out["launches"] = inference_launches("grid_chisq")
+    check(np.all(np.isfinite(chi2)), "grid chi2 not finite")
+    check(lo <= i <= hi and lo <= j <= hi,
+          f"grid minimum at {(i, j)}, not at the truth's cell")
+
+    # the 2048-TOA copy: card vs CPU, 3 x 3 around the truth
+    sm, stoas = make_test_pulsar(msp_par(MSP_SMALL["ndmx"], seed=0),
+                                 ntoa=MSP_SMALL["ntoa"], **MSP_SIM)
+    small = {"M2": m2 + np.array([-1.0, 0.0, 1.0]) * 20 * sig["M2"],
+             "SINI": sini + np.array([-1.0, 0.0, 0.5]) * 20 * ds}
+    vals = {d: grid_chisq(stoas, sm, small, device=d)
+            for d in ("cuda", "cpu")}
+    out["card_vs_cpu"] = float(np.max(np.abs(vals["cuda"] - vals["cpu"])
+                                      / np.abs(vals["cpu"])))
+    log(f"inference: grid card vs CPU at 2048 TOAs: {out['card_vs_cpu']}")
+    check(out["card_vs_cpu"] <= 1e-8, f"grid card vs CPU: {vals}")
+    return out
+
+
+def photon_inference(dev):
+    """1e6 photon phases drawn from a two-Gaussian template and fitted
+    with LCFitter on the card; the log-likelihood, H and Z^2_m card vs
+    CPU."""
+    truth = LCTemplate([LCGaussian(width=0.03, loc=0.3),
+                        LCGaussian(width=0.08, loc=0.7)], weights=[0.35, 0.25])
+    t0 = time.perf_counter()
+    phases = truth.random(INF_PHOTONS, rng=np.random.default_rng(5),
+                          device=dev)
+    draw_s = time.perf_counter() - t0
+    start = LCTemplate([LCGaussian(width=0.05, loc=0.28),
+                        LCGaussian(width=0.05, loc=0.72)], weights=[0.3, 0.3])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    f = LCFitter(start, phases, device=dev)
+    ll = f.fit()
+    errs = f.errors()
+    fit_s = time.perf_counter() - t0
+    got, want = start.get_parameters(), truth.get_parameters()
+    out = dict(photons=INF_PHOTONS, draw_s=draw_s, fit_s=fit_s,
+               nfev=int(f.result.nfev), loglike=ll,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               gap_over_err=((got - want) / errs).tolist())
+    check(np.all(np.abs(got - want) < 5.0 * errs),
+          f"template fit off the truth: {out['gap_over_err']}")
+    p = torch.as_tensor(got)
+    lls = {d: float(LCFitter(start, phases, device=d).loglikelihood(p))
+           for d in ("cuda", "cpu")}
+    out["loglike_card_vs_cpu"] = abs(lls["cuda"] - lls["cpu"]) / abs(
+        lls["cpu"])
+    check(out["loglike_card_vs_cpu"] <= 1e-10,
+          f"template log-likelihood card vs CPU: {lls}")
+    stats = {d: (hm(phases, device=d), z2m(phases, m=4, device=d))
+             for d in ("cuda", "cpu")}
+    out["hm"] = stats["cuda"][0]
+    out["hm_card_vs_cpu"] = abs(stats["cuda"][0] - stats["cpu"][0]) / abs(
+        stats["cpu"][0])
+    out["z2m_card_vs_cpu"] = float(np.max(np.abs(stats["cuda"][1]
+                                                 - stats["cpu"][1])
+                                          / np.abs(stats["cpu"][1])))
+    check(out["hm_card_vs_cpu"] <= 1e-9 and out["z2m_card_vs_cpu"] <= 1e-9,
+          f"H / Z^2_m card vs CPU: {stats}")
+    out["eventstats_ms"] = event_ms(lambda: hm(phases, device=dev))["ms"]
+    log(f"inference: LCFitter on {INF_PHOTONS} photons: {out}")
+    return out
+
+
+def inference_phase(dev, msp_toas):
+    """Phase 13: the timing posterior (lnposterior batch, MCMC, nested)
+    on bench.py's pulsar, the chi2 grid on the binary MSP, the photon
+    template fit; every launch count 0 on these paths."""
+    t0 = time.perf_counter()
+    out = {"bench": bench_inference(dev)}
+    out["grid"] = grid_inference(dev, msp_toas)
+    zero_counts()
+    out["photons"] = photon_inference(dev)
+    out["photon_launches"] = inference_launches("LCFitter")
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"inference: phase 13 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2131,8 +2466,12 @@ def main():
     stream["launches"] = read_counts()
     check(not any(stream["launches"].values()),
           f"a kernel launched on the streaming path: {stream['launches']}")
-    del msp_toas
     phase_memory(12)
+
+    # 13. inference: the timing posterior, the chi2 grid, photon templates
+    inference = inference_phase(dev, msp_toas)
+    del msp_toas
+    phase_memory(13)
 
     # the kernels line: each kernel at the binary MSP's shapes (launches
     # from its fits), and under "bench" the same numbers at bench.py's
@@ -2190,6 +2529,7 @@ def main():
     rows[0]["pta"] = pta
     rows[0]["dense"] = dense
     rows[0]["stream"] = stream
+    rows[0]["inference"] = inference
     rows[0]["graphs"] = GRAPHS
     rows[0]["memory_after_phase"] = MEMORY
     print(json.dumps({"kernels": rows}), flush=True)

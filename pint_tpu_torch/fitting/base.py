@@ -154,3 +154,90 @@ class Fitter:
         self.cm.commit(x.detach().cpu().numpy(), uncertainties=sigmas)
         self.chi2 = float(chi2)
         return self.chi2
+
+    @property
+    def resids(self):
+        """Residuals at the model's current values (after a fit, the
+        fitted ones); the wideband fitters return their paired
+        residuals."""
+        from pint_tpu_torch.residuals import Residuals
+
+        return Residuals(self.toas, self.model, compiled=self.cm)
+
+    def get_derived_params(self) -> str:
+        """Derived quantities of the (fitted) model, as text: spin
+        period, characteristic age, surface B field, spin-down luminosity,
+        and the binary mass function when the model has an orbit
+        (reference: src/pint/fitter.py::Fitter.get_derived_params)."""
+        from pint_tpu_torch import derived_quantities as dq
+
+        m = self.model
+        lines = []
+
+        def _val(name):
+            p = m.params.get(name)
+            if p is None or p.value is None:
+                return None
+            v = p._par_value()
+            return float(v.to_float()) if hasattr(v, "to_float") else float(v)
+
+        f0, f1 = _val("F0"), _val("F1")
+        if f0:
+            p0, p1 = dq.p_to_f(f0, f1 or 0.0)  # involution: f->p too
+            lines.append(f"P0 = {p0:.15g} s")
+            if f1:
+                lines.append(f"P1 = {p1:.6g}")
+                lines.append(
+                    f"tau_c = {dq.pulsar_age(f0, f1):.4g} yr"
+                )
+                lines.append(f"B_surf = {dq.pulsar_B(f0, f1):.4g} G")
+                lines.append(
+                    f"Edot = {dq.pulsar_edot(f0, f1):.4g} erg/s"
+                )
+        pb, a1 = _val("PB"), _val("A1")
+        if pb is None and _val("FB0"):
+            pb = 1.0 / _val("FB0") / 86400.0
+        if pb and a1:
+            mf = dq.mass_funct(pb * 86400.0, a1)
+            lines.append(f"mass function = {mf:.6g} Msun")
+            lines.append(
+                "companion mass (i=60deg, mp=1.4) = "
+                f"{dq.companion_mass(pb * 86400.0, a1):.4g} Msun"
+            )
+        return "\n".join(lines)
+
+    def print_summary(self) -> str:
+        """Print and return the fit summary: chi2, dof, weighted RMS, each
+        free parameter's value and uncertainty, and the derived
+        quantities (the reference's text, string for string)."""
+        resids = self.resids
+        chi2 = self.chi2 if self.chi2 is not None else resids.chi2
+        lines = [
+            f"Fitted model using {type(self).__name__} with "
+            f"{len(self.cm.free_names)} free parameters, "
+            f"{self.cm.bundle.ntoa} TOAs; converged={self.converged}",
+            f"chi2 = {chi2:.4f}",
+        ]
+        dof = getattr(resids, "dof", None)
+        if dof is not None:
+            lines.append(
+                f"dof = {dof}  reduced chi2 = {chi2 / dof:.4f}"
+            )
+        if hasattr(resids, "rms_weighted"):
+            lines.append(
+                f"weighted RMS = {resids.rms_weighted() * 1e6:.4f} us"
+            )
+        lines.append(
+            f"{'PARAM':<12}{'VALUE':>25}{'UNCERTAINTY':>15}"
+        )
+        for n in self.cm.free_names:
+            p = self.model.params[n]
+            unc = p.uncertainty if p.uncertainty is not None else float("nan")
+            lines.append(f"{n:<12}{p._format_value():>25}{unc:>15.3e}")
+        derived = self.get_derived_params()
+        if derived:
+            lines.append("Derived Parameters:")
+            lines.append(derived)
+        out = "\n".join(lines)
+        print(out)
+        return out

@@ -16,6 +16,7 @@ Internal values, as :func:`reference_values` hands them to kernels:
 from __future__ import annotations
 
 import re
+from decimal import Decimal, localcontext
 from typing import Optional
 
 import numpy as np
@@ -32,6 +33,24 @@ def _fortran_to_e(s: str) -> str:
 
 def _parse_float_str(s: str) -> float:
     return float(_fortran_to_e(s))
+
+
+def _format_sexagesimal(val: float, ndp: int) -> str:
+    sign = "-" if val < 0 else ""
+    val = abs(val)
+    d = int(val)
+    rem = (val - d) * 60.0
+    m = int(rem)
+    s = (rem - m) * 60.0
+    # guard against 59.99999 -> 60 rollover
+    s_str = f"{s:0{3 + ndp}.{ndp}f}"
+    if float(s_str) >= 60.0:
+        s_str = f"{0.0:0{3 + ndp}.{ndp}f}"
+        m += 1
+    if m >= 60:
+        m -= 60
+        d += 1
+    return f"{sign}{d:02d}:{m:02d}:{s_str}"
 
 
 def _parse_sexagesimal(s: str) -> tuple[float, int]:
@@ -76,6 +95,18 @@ class Parameter:
     @value.setter
     def value(self, v):
         self._internal = None if v is None else self._to_internal(v)
+        # the value as given, while the internal value is the one it set
+        # (``_format_value`` writes it, as the reference stores it)
+        self._given = (self._internal, v)
+
+    def _par_value(self):
+        """The value in par-file units: the one last given while the
+        internal value is still the one it set, else internal / scale
+        (the reference's value after ``set_internal``)."""
+        given = getattr(self, "_given", None)
+        if given is not None and given[0] is self._internal:
+            return given[1]
+        return self.value
 
     def _to_internal(self, v):
         return v * self.scale_to_internal
@@ -112,8 +143,19 @@ class Parameter:
     def set_internal(self, v):
         self._internal = v
 
+    def internal_uncertainty(self):
+        """The uncertainty in internal units (None when unset)."""
+        if self.uncertainty is None:
+            return None
+        return self.uncertainty * self.scale_to_internal
+
     def set_internal_uncertainty(self, u):
         self.uncertainty = u / self.scale_to_internal
+
+    def _format_value(self) -> str:
+        """The value as the reference's ``_format_value`` writes it (the
+        fitters' ``print_summary`` table)."""
+        return str(self._par_value())
 
     def __repr__(self):
         fit = "" if self.frozen else " FIT"
@@ -164,6 +206,15 @@ class floatParameter(Parameter):
         if self.precision == "dd" and not isinstance(v, HostDD):
             v = HostDD(np.float64(v))
         self._internal = v
+
+    def _format_value(self):
+        v = self._par_value()
+        if isinstance(v, HostDD):
+            with localcontext() as ctx:
+                ctx.prec = 40
+                d = Decimal(float(v.hi)) + Decimal(float(v.lo))
+                return f"{d:.25g}"
+        return f"{v:.17g}"
 
 
 class boolParameter(Parameter):
@@ -227,8 +278,24 @@ class MJDParameter(Parameter):
             "epoch parameters update via add_internal_delta, not set_internal"
         )
 
+    def internal_uncertainty(self):
+        """Uncertainty in seconds (par files carry days)."""
+        if self.uncertainty is None:
+            return None
+        return self.uncertainty * 86400.0
+
     def set_internal_uncertainty(self, u):
         self.uncertainty = u / SECS_PER_DAY  # par files carry days
+
+    def _format_value(self):
+        """pulsar_mjd text with 15 decimals."""
+        day, sec = self.value
+        with localcontext() as ctx:
+            ctx.prec = 40
+            frac = (Decimal(float(sec.hi)) + Decimal(float(sec.lo))) / (
+                Decimal(86400))
+            total = Decimal(int(day)) + frac
+            return f"{total:.15f}"
 
 
 class AngleParameter(Parameter):
@@ -264,9 +331,29 @@ class AngleParameter(Parameter):
     def set_internal(self, v):
         self._internal = float(v)
 
+    def internal_uncertainty(self):
+        """Uncertainty in radians: par-file uncertainties for H:M:S are in
+        seconds of time, for D:M:S in arcseconds (tempo convention)."""
+        if self.uncertainty is None:
+            return None
+        per = self._UNC_PER_RAD.get(self.units)
+        return self.uncertainty if per is None else (
+            self.uncertainty * np.pi / per)
+
     def set_internal_uncertainty(self, u):
         per = self._UNC_PER_RAD.get(self.units)
         self.uncertainty = u if per is None else u * per / np.pi
+
+    def _format_value(self):
+        v = self.value
+        if self.units == "H:M:S":
+            return _format_sexagesimal(v / HOUR_TO_RAD, 11)
+        if self.units == "D:M:S":
+            out = _format_sexagesimal(v / DEG_TO_RAD, 10)
+            return out if out.startswith("-") else "+" + out
+        if self.units == "deg":
+            return f"{v * 180.0 / np.pi:.17g}"
+        return f"{v:.17g}"
 
 
 class maskParameter(floatParameter):

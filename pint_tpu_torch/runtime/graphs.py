@@ -8,10 +8,12 @@ loop, ``PTABatch``'s scan) run as single device programs.  Here a
 
 - on ``cuda`` the first call warms the function up on a side stream (one
   eager call: the lazily built tables, the kernels' libraries, the
-  library handles), captures it into ``torch.cuda.CUDAGraph``s and
-  replays them; every call copies its inputs into the static input
-  buffers, replays, and returns copies of the static outputs, which the
-  caller may keep across later replays;
+  library handles), captures it into ``torch.cuda.CUDAGraph``s (after
+  emptying the allocator's cache where the free memory could not hold
+  it again, ``CAPTURE_ROOM``: a capture that runs out of memory is
+  invalidated) and replays them; every call copies its inputs into the
+  static input buffers, replays, and returns copies of the static
+  outputs, which the caller may keep across later replays;
 - on ``cpu`` it calls the function directly.
 
 A library call that checks its result on the host (``torch.linalg.eigh``
@@ -43,6 +45,12 @@ import torch
 from pint_tpu_torch.ops._cuda_build import LAUNCH_COUNTERS
 
 _capturing = threading.local()
+
+#: a capture starts with the allocator's cache emptied unless the card's
+#: free memory is at least this many times the cache's unused bytes (an
+#: upper bound of the warm-up's working set, which the capture's own pool
+#: must hold again)
+CAPTURE_ROOM = 1.5
 
 
 def flatten(tree):
@@ -199,6 +207,16 @@ class StepProgram:
         main.wait_stream(self._stream)
         self.inputs = [a.clone() for a in args]
         torch.cuda.synchronize(dev)
+        # the graphs take their memory from a pool of their own, which
+        # cannot reuse the cached blocks the warm-up left.  Running out of
+        # memory inside a capture makes the allocator free its cache, and a
+        # cudaFree there invalidates the capture; so where the card's free
+        # memory would not hold the cache's size again with room to spare,
+        # the cache is handed back first
+        cached = (torch.cuda.memory_reserved(dev)
+                  - torch.cuda.memory_allocated(dev))
+        if torch.cuda.mem_get_info(dev)[0] < CAPTURE_ROOM * cached:
+            torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         _capturing.program = self
         self._pool = torch.cuda.graph_pool_handle()

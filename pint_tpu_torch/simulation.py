@@ -29,6 +29,7 @@ keep the Sun's position at zero, as before.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from pint_tpu_torch.constants import AU, C, SECS_PER_DAY
 from pint_tpu_torch.models.builder import get_model
@@ -288,3 +289,19 @@ def make_population(par: str, npsr: int, ntoa: int = 64, seed: int = 0,
                 p.set_internal(ref + spread * scale * rng.standard_normal())
         models.append(m)
     return models, toas
+
+
+def calculate_random_models(fitter, n_models: int = 100, rng=None):
+    """Draw parameter vectors from the fit covariance with the numpy
+    ``rng`` and return the residual curves (n_models, ntoa) they give
+    (reference: simulation.calculate_random_models).  The residuals of
+    every draw are one vmapped evaluation on the fitter's device."""
+    rng = rng or np.random.default_rng()
+    cov = fitter.parameter_covariance_matrix  # free_names order
+    if cov is None:
+        raise ValueError("fit first")
+    L = np.linalg.cholesky(cov + 1e-30 * np.eye(len(cov)))
+    draws = rng.normal(size=(n_models, len(cov))) @ L.T
+    cm = fitter.cm
+    x = torch.as_tensor(draws, device=cm.device)
+    return torch.func.vmap(cm.time_residuals)(x).cpu().numpy()

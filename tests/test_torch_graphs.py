@@ -387,6 +387,53 @@ def test_stream_append_and_solve_hold_no_host_read(no_host_reads,
     assert bool(torch.all(torch.isfinite(dx))) and math.isfinite(float(chi2))
 
 
+# -- the inference slice's programs -----------------------------------------
+def test_mcmc_steps_hold_no_host_read(no_host_reads):
+    """MCMCFitter: every stretch step (two half-ensemble proposals, the
+    vmapped log-posterior with its red noise marginalized through the
+    NaN-poisoning Cholesky, the accept/where) is one program call."""
+    from pint_tpu_torch.sampler import MCMCFitter
+
+    model, toas = _bench(128)
+    f = MCMCFitter(toas, model, device="cpu")
+    _quiet(f.fit_toas, nsteps=3, nwalkers=12, seed=1)
+    assert len(no_host_reads) == 3 and f.bt.cm.programs.replays == 0
+
+
+def test_lnposterior_batch_and_nested_hold_no_host_read(no_host_reads):
+    """BayesianTiming's batched log-posterior program, and nested
+    sampling's likelihood programs (the live set's, the proposals')."""
+    from pint_tpu_torch.bayesian import BayesianTiming
+    from pint_tpu_torch.models.priors import UniformBoundedRV
+
+    model, toas = _bench(128)
+    bt = BayesianTiming(model, toas, device="cpu")
+    X = torch.zeros((8, bt.nparams), dtype=F64)
+    assert bool(torch.isfinite(bt.lnposterior_batch(8)(X)).all())
+    sig = [1e-9, 1e-8, 1e-4, 1e-11, 1e-18]
+    bn = BayesianTiming(
+        model, toas, device="cpu",
+        priors={n: UniformBoundedRV(-s, s)
+                for n, s in zip(bt.param_names, sig)})
+    res = bn.sample_nested(nlive=20, dlogz=5.0, batch=16, seed=2)
+    assert np.isfinite(res["logz"]) and len(no_host_reads) >= 3
+
+
+def test_grid_chunk_holds_no_host_read(no_host_reads, monkeypatch):
+    """A grid chunk on the card's route: the vmapped refits' WLS solve by
+    QR with its device-side gate (the gram answer's eigh a host call)."""
+    from pint_tpu_torch.fitting import wls
+    from pint_tpu_torch.gridutils import grid_chisq
+
+    monkeypatch.setattr(wls, "default_wls_method", lambda d: "qr")
+    model, toas = _msp(ntoa=256, ndmx=4)
+    chi2 = grid_chisq(toas, model, {"M2": [0.19, 0.21],
+                                    "SINI": [0.997, 0.998, 0.999]},
+                      device="cpu", chunk=4)
+    assert chi2.shape == (2, 3) and np.all(np.isfinite(chi2))
+    assert len(no_host_reads) == 2
+
+
 def test_no_host_reads_catches_reads():
     """The mode itself: each kind of read raises; host_call passes eigh."""
     t = torch.ones(3, dtype=F64)
