@@ -183,6 +183,25 @@ Phases, each of which raises on failure (exit code != 0):
    ``LCTemplate`` and fitted by ``LCFitter`` within 5 errors of the
    truth, the log-likelihood card vs CPU within 1e-10 and H and Z^2_4
    within 1e-9.
+14. the port's own host ingest (no module of JAX or of the JAX package
+   is imported anywhere in the script, which it asserts at the end): the
+   23 golden sets read by ``get_model_and_toas`` in the committed data
+   environment (``tests/datafile/ingest``: clock files, EOP table,
+   ``testsat``'s orbit; ``tests/datafile/mini_vsop87.bsp``), golden21's
+   satellite and golden22's topocentric TZR row included, each one's
+   residuals on the card within 1 ns of its oracle; bench.py's pulsar
+   with ``EPHEM mini_vsop87`` and ``CLOCK TT(BIPM2021)`` simulated at 1e5
+   TOAs at gbt, effelsberg, jodrell and parkes over MJD 54500-55900 (the
+   inversion on the card, the ingest between passes on the host), written
+   by ``write_tim_file`` and read back: parse and ingest timed apart,
+   ``get_TOAs(usepickle=False)`` cold, ``usepickle=True`` twice (the cache
+   written, then a full hit), then 64 rows appended and read again (only
+   they ingested), every column bitwise equal across the reads, the
+   native MJD parser required; ``auto_fitter(toas, model).fit_toas()``
+   on the cold read (downhill GLS on its native rung, ``fused_gram_joint``
+   launched), every fitted value within 3 sigma of the par value (the
+   simulation's truth); a 2048-TOA topocentric copy card vs CPU
+   (residuals 1e-11 s, f64 step 1e-8).
 
 Every fit above runs its steps as replays of step programs
 (``runtime/graphs.py``: CUDA graphs captured once, after one eager
@@ -213,7 +232,8 @@ the launches of the downhill fits of phase 7, under ``full_width``
 its q = 350 entry with the launches of phase 8's fits, under
 ``wideband`` and ``pta`` those of phases 9 and 10, and under ``dense``,
 ``stream`` and ``inference`` phases 11, 12 and 13's results with their
-zero launches),
+zero launches, under ``ingest`` phase 14's results and the launches of
+its fit),
 nvidia-smi's
 name and power limit, and ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the package beside it, the script exits non-zero
@@ -230,10 +250,12 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 from types import SimpleNamespace
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -280,7 +302,12 @@ from pint_tpu_torch.templates import (  # noqa: E402
     LCTemplate,
 )
 from pint_tpu_torch.exceptions import PintTpuError  # noqa: E402
+from pint_tpu_torch import native  # noqa: E402
+from pint_tpu_torch.io.tim import get_TOAs_from_tim, write_tim_file  # noqa: E402
 from pint_tpu_torch.models.builder import get_model  # noqa: E402
+from pint_tpu_torch.toas.cache import get_TOAs  # noqa: E402
+from pint_tpu_torch.toas.ingest import ingest_for_model  # noqa: E402
+from pint_tpu_torch.toas.ingest_topo import ingest_workers  # noqa: E402
 from pint_tpu_torch.models.noise import (  # noqa: E402
     fourier_basis_rows,
     fourier_freqs,
@@ -306,6 +333,11 @@ from pint_tpu_torch.simulation import (  # noqa: E402
     pta_pars,
 )
 from pint_tpu_torch.timebase.hostdd import HostDD  # noqa: E402
+from torch_ingest_env import (  # noqa: E402
+    golden_env,
+    port_golden,
+    port_ingest_env,
+)
 
 BENCH_PAR = """
 PSR              J1744-1134
@@ -2248,6 +2280,195 @@ def inference_phase(dev, msp_toas):
     return out
 
 
+#: phase 14: the topocentric dataset: bench.py's pulsar with the committed
+#: ephemeris and the BIPM realization, at four sites over MJD 54500-55900
+#: (the clock files run to 55990, the ephemeris from 54466 to 55927).  The
+#: data environment of the committed golden sets (the ``$PINT_TPU_*``
+#: variables the reference reads too) and the sets read in it are
+#: tests/torch_ingest_env.py's
+TOPO_PAR = BENCH_PAR + "EPHEM mini_vsop87\nCLOCK TT(BIPM2021)\n"
+TOPO_SITES = ("gbt", "effelsberg", "jodrell", "parkes")
+TOPO_SIM = dict(start_mjd=54500.0, end_mjd=55900.0, seed=0, iterations=3,
+                obs=TOPO_SITES)
+#: the rows appended to the tim file, after its last TOA
+TOPO_TAIL = 64
+
+
+def host_cpu():
+    """The host's CPU (lscpu's model name, else /proc/cpuinfo's, and the
+    architecture) and its usable cores: host seconds name them."""
+    import platform
+
+    name = ""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30).stdout
+        name = next((line.split(":", 1)[1].strip()
+                     for line in out.splitlines()
+                     if line.startswith("Model name")), "")
+    except (OSError, subprocess.SubprocessError):
+        pass
+    if not name:
+        try:
+            name = next((line.split(":", 1)[1].strip() for line in
+                         Path("/proc/cpuinfo").read_text().splitlines()
+                         if line.startswith("model name")), "")
+        except OSError:
+            pass
+    return (f"{name or 'unknown CPU'} ({platform.machine()}), "
+            f"{len(os.sched_getaffinity(0))} usable cores")
+
+
+def golden_ingest(dev):
+    """Every golden set ingested by the port alone, in the environment the
+    reference's regression reads it in; its residuals on the card within
+    1 ns of the oracle.  -> stem -> worst gap (s)."""
+    gaps = {}
+    t0 = time.perf_counter()
+    for i in range(1, 24):
+        stem = f"golden{i}"
+        model, toas = port_golden(stem)
+        with golden_env(stem):
+            cm = model.compile(toas, device=dev)
+            r = cm.time_residuals(cm.x0()).cpu().numpy()
+        want = np.load(GOLDEN_DIR / f"{stem}_oracle.npz")["resid"]
+        gaps[stem] = float(np.max(np.abs(r - want)))
+        check(gaps[stem] <= 1e-9, f"{stem}: the card's residuals of the "
+              f"port's ingest are {gaps[stem]} s off the oracle")
+    log(f"ingest: 23 goldens read by the port, residuals on the card vs "
+        f"oracle (worst, s): {gaps} in {time.perf_counter() - t0:.1f} s")
+    return gaps
+
+
+def columns_equal(label, a, b):
+    """Every ingested column of two TOAs bitwise equal."""
+    cols = ["freq", "error_us", "clock_corr_s", "ssb_obs_pos", "ssb_obs_vel",
+            "obs_sun_pos", "obs_lat_rad", "obs_alt_m", "obs_elevation_rad"]
+    pairs = [(c, getattr(a, c), getattr(b, c)) for c in cols]
+    pairs += [(f"t.{k}", *(getattr(x.t, "mjd_int") if k == "day"
+                           else getattr(x.t.sec, k) for x in (a, b)))
+              for k in ("day", "hi", "lo")]
+    pairs += [(f"t_tdb.{k}", *(getattr(x.t_tdb, "mjd_int") if k == "day"
+                               else getattr(x.t_tdb.sec, k) for x in (a, b)))
+              for k in ("day", "hi", "lo")]
+    bad = [c for c, u, v in pairs
+           if (u is None) != (v is None)
+           or (u is not None and not np.array_equal(u, v))]
+    bad += [c for c in ("obs", "flags") if getattr(a, c) != getattr(b, c)]
+    check(not bad, f"{label}: columns differ: {bad}")
+
+
+def topo_dataset(dev, tmp):
+    """The 1e5-TOA topocentric dataset simulated on the card, written
+    with ``write_tim_file``, read back cold (``get_TOAs(usepickle=False)``:
+    its parse and its ingest timed apart too), through the cache twice
+    (write, then a full hit), and again after 64 rows were appended
+    (only the tail ingested).  -> (model, TOAs of the cold read, the
+    timings)."""
+    from pint_tpu_torch.toas import ingest as ingest_mod
+
+    out = {"host": host_cpu(), "workers": ingest_workers(),
+           "native_parser": native.available()}
+    check(out["native_parser"], "the native MJD parser is not active")
+    t0 = time.perf_counter()
+    model, sim = make_test_pulsar(TOPO_PAR, ntoa=NTOA, device=dev,
+                                  **TOPO_SIM)
+    out["simulate_s"] = time.perf_counter() - t0
+    tim = tmp / "topo.tim"
+    t0 = time.perf_counter()
+    write_tim_file(str(tim), sim)
+    out["write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw = get_TOAs_from_tim(str(tim))
+    out["parse_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ingest_for_model(raw, model)
+    out["ingest_s"] = time.perf_counter() - t0
+    out["ingest_toas_per_s"] = NTOA / out["ingest_s"]
+    t0 = time.perf_counter()
+    cold = get_TOAs(str(tim), model=model, usepickle=False)
+    out["cold_s"] = time.perf_counter() - t0
+    out["cold_toas_per_s"] = NTOA / out["cold_s"]
+    columns_equal("parse + ingest vs get_TOAs", raw, cold)
+    # the cache: ingested rows counted by a spy on the chain's entry
+    ingested = []
+    real = ingest_mod.ingest_for_model
+
+    def spy(t, m, **kw):
+        ingested.append(len(t))
+        return real(t, m, **kw)
+
+    ingest_mod.ingest_for_model = spy
+    try:
+        t0 = time.perf_counter()
+        first = get_TOAs(str(tim), model=model, usepickle=True)
+        out["cache_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hit = get_TOAs(str(tim), model=model, usepickle=True)
+        out["cache_hit_s"] = time.perf_counter() - t0
+        check(ingested == [NTOA], f"cache write then hit ingested {ingested}")
+        columns_equal("cache write", cold, first)
+        columns_equal("cache hit", cold, hit)
+        # 64 more TOAs after the last, appended to the file
+        _, more = make_test_pulsar(TOPO_PAR, ntoa=TOPO_TAIL, device=dev,
+                                   **{**TOPO_SIM, "start_mjd": 55901.0,
+                                      "end_mjd": 55920.0, "seed": 1})
+        write_tim_file(str(tmp / "tail.tim"), more)
+        lines = (tmp / "tail.tim").read_text().splitlines(keepends=True)
+        with open(tim, "a") as f:
+            f.writelines(lines[1:])  # without its FORMAT line
+        del ingested[:]
+        t0 = time.perf_counter()
+        grown = get_TOAs(str(tim), model=model, usepickle=True)
+        out["tail_append_s"] = time.perf_counter() - t0
+        check(ingested == [TOPO_TAIL],
+              f"the appended read ingested {ingested}, not the tail alone")
+    finally:
+        ingest_mod.ingest_for_model = real
+    fresh = get_TOAs(str(tim), model=model, usepickle=False)
+    columns_equal("tail append vs a full ingest", fresh, grown)
+    log(f"ingest: {NTOA} topocentric TOAs at {TOPO_SITES} on {out['host']}: "
+        f"{out}")
+    return model, cold, out
+
+
+def ingest_phase(dev):
+    """Phase 14: the port's own host ingest.  The 23 goldens; the 1e5-TOA
+    topocentric dataset from disk (cold, cache write, cache hit, tail
+    append); ``auto_fitter(toas, model).fit_toas()`` on it, served on its
+    native rung through ``fused_gram_joint``, every fitted value within 3
+    sigma of the simulation's truth; a 2048-TOA copy card vs CPU."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out = {"goldens": golden_ingest(dev)}
+    with warnings.catch_warnings(), port_ingest_env(), \
+            tempfile.TemporaryDirectory() as tmp:
+        warnings.simplefilter("ignore")
+        os.environ["PINT_TPU_CACHE_DIR"] = tmp
+        try:
+            model, toas, out["dataset"] = topo_dataset(dev, Path(tmp))
+        finally:
+            del os.environ["PINT_TPU_CACHE_DIR"]
+        f, out["fit"] = downhill_fit(
+            "topo", lambda: auto_fitter(toas, model), DownhillGLSFitter,
+            wide=False)
+        sig = np.sqrt(np.diag(f.parameter_covariance_matrix))
+        gaps = value_gaps(f.model, get_model(TOPO_PAR), f.cm.free_names, sig)
+        worst = max(gaps, key=gaps.get)
+        out["fit"]["vs_truth_sigma"] = gaps
+        log(f"topo: fitted values vs the simulation's truth (sigma): {gaps}")
+        check(gaps[worst] <= 3.0, f"topo: {worst} is {gaps[worst]} sigma "
+              "off the simulation's truth")
+        del f, toas
+        out["card_vs_cpu"] = card_vs_cpu(
+            "topo", TOPO_PAR, 2048, {**TOPO_SIM, "orbit": False,
+                                     "iterations": 1}, fourier=False)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"ingest: phase 14 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2473,6 +2694,10 @@ def main():
     del msp_toas
     phase_memory(13)
 
+    # 14. the port's own ingest: goldens, a 1e5-TOA topocentric tim file
+    ingest = ingest_phase(dev)
+    phase_memory(14)
+
     # the kernels line: each kernel at the binary MSP's shapes (launches
     # from its fits), and under "bench" the same numbers at bench.py's
     # pulsar (launches from its fits)
@@ -2530,8 +2755,13 @@ def main():
     rows[0]["dense"] = dense
     rows[0]["stream"] = stream
     rows[0]["inference"] = inference
+    rows[0]["ingest"] = ingest
+    rows[0]["ingest_launches"] = ingest["fit"]["launches"]["fused_gram_joint"]
     rows[0]["graphs"] = GRAPHS
     rows[0]["memory_after_phase"] = MEMORY
+    barred = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "pint_tpu"))
+    check(not barred, f"modules of JAX or the JAX package imported: {barred}")
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

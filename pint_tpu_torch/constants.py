@@ -20,7 +20,11 @@ DEG_TO_RAD = math.pi / 180.0
 HOUR_TO_RAD = math.pi / 12.0
 
 GM_SUN = 1.32712440041279419e20
+GM_MERCURY = 2.2031868551e13
 GM_VENUS = 3.24858592000e14
+GM_EARTH = 3.98600435507e14
+GM_MOON = 4.902800118e12
+GM_MARS = 4.2828375816e13  # Mars system
 GM_JUPITER = 1.26712764100000e17  # Jupiter system
 GM_SATURN = 3.79405852000000e16  # Saturn system
 GM_URANUS = 5.794556400000e15  # Uranus system
@@ -45,5 +49,12 @@ F_YR = 1.0 / SECS_PER_JULIAN_YEAR
 #: 1977-01-01 origin (seconds)
 L_B = 1.550519768e-8
 TDB0 = -6.55e-5
+
+#: TCG vs TT rate (IAU 2000 Resolution B1.9, exact) and TT - TAI (s)
+L_G = 6.969290134e-10
+TT_MINUS_TAI = 32.184
+
+#: the J2000.0 epoch as MJD (TT)
+MJD_J2000 = 51544.5
 
 PC = 3.0856775814913673e16  # m (parsec, derived from AU / arcsec)

@@ -1,8 +1,9 @@
-"""Exception types of the port's fitters and fit ladder.
+"""Exception types of the port's fitters, fit ladder and host ingest.
 
 Counterpart of the subset of ``pint_tpu/exceptions.py`` that the fitters
-(``fitting/``), the finite validator (``runtime/guard.py``) and the
-fallback ladder (``runtime/fallback.py``) raise, warn and catch.
+(``fitting/``), the finite validator (``runtime/guard.py``), the
+fallback ladder (``runtime/fallback.py``) and the ingest layer (clock
+files, ephemerides, observatories) raise, warn and catch.
 """
 
 from __future__ import annotations
@@ -70,3 +71,40 @@ class CorrelatedErrors(PintTpuError):
 
 class ConvergenceWarning(UserWarning):
     """A fitter stopped without meeting its convergence tolerance."""
+
+
+class MissingClockCorrection(PintTpuError):
+    """No clock correction available for an observatory/epoch."""
+
+
+class ClockCorrectionOutOfRange(PintTpuError):
+    """A TOA falls outside the span of the observatory clock file."""
+
+
+class DataFileError(PintTpuError, ValueError):
+    """Malformed runtime data file (EOP tables, clock files, ...)."""
+
+
+class EphemerisError(PintTpuError):
+    """Ephemeris file/segment problems."""
+
+
+class EphemerisFormatError(EphemerisError, ValueError):
+    """Malformed/unsupported SPK/DAF file (also a ValueError)."""
+
+
+class EphemerisSegmentError(EphemerisError, KeyError):
+    """Missing target/center segment or chain to the SSB.  Also a
+    KeyError: the time ephemeris's fallback policy catches KeyError to
+    retry with NAIF ids or the builtin theory."""
+
+    # KeyError.__str__ repr-quotes the message; keep plain formatting
+    __str__ = Exception.__str__
+
+
+class UnknownObservatory(PintTpuError):
+    """Observatory name not found in the registry."""
+
+
+class PrefixError(PintTpuError):
+    """Malformed prefix-parameter name."""

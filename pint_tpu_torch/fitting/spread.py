@@ -24,7 +24,7 @@ import torch
 
 from pint_tpu_torch.fitting.base import design_with_offset, noffset
 from pint_tpu_torch.fitting.gls import gls_step_woodbury
-from pint_tpu_torch.toas.bundle import take_rows
+from pint_tpu_torch.toas.bundle import as_table, take_rows
 
 
 def step_inputs(cm, x):
@@ -57,6 +57,7 @@ def ordering_gaps(model, table, device, seeds=range(8)):
     ``len(seeds)`` seeded permutations of the table's TOAs.  On the
     binary MSP's in-phase copy one permutation's gap falls anywhere from
     1e-13 to 5e-12 sigma, so a yardstick takes the largest of eight."""
+    table = as_table(table)
     dx, sig, _ = f64_step(model.compile(table, device=device))
     n = len(table["freq_mhz"])
     out = []

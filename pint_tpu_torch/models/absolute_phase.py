@@ -8,11 +8,12 @@ ladder's ``vmap``) and subtracts it with the carry-normalized
 ``Phase.__sub__`` (``timing_model.py::CompiledModel.absolute_phase``).
 
 The TZR row is a one-row TOA table (``toas/bundle.py``) under the data
-table's ``"tzr"`` key: the reference's ingested row when a state is
-carried across, or, for a barycentric site ('@'), :meth:`tzr_table`
-here, with zero geometry as the reference's barycentric ingest leaves it
-(``simulation.py`` puts its synthetic orbit on it).  Other sites need the
-port's own ingest (ROADMAP A11).
+table's ``"tzr"`` key when a caller gives one (the reference's ingested
+row when a state is carried across; ``simulation.py``'s synthetic
+orbit), else :meth:`AbsPhase.tzr_table`: the TZR arrival ingested through
+the model's own chain (clock files, EOP, ephemeris of the environment
+in scope), as the reference does.  ``models/builder.py`` ingests it
+eagerly when the model is built.
 """
 
 from __future__ import annotations
@@ -46,26 +47,53 @@ class AbsPhase(Component):
     def anchored(self) -> bool:
         return self.params["TZRMJD"].value is not None
 
-    def tzr_table(self) -> dict:
-        """The one-row host table of a barycentric TZR arrival: TZRMJD as
-        TDB, TZRFRQ (infinite when unset), zero geometry."""
+    def make_tzr_toas(self):
+        """The one-TOA TOAs of the TZR arrival (host-side): TZRMJD in
+        TDB at a barycentric site, else in UTC at TZRSITE."""
+        from pint_tpu_torch.timebase.hostdd import HostDD
+        from pint_tpu_torch.timebase.times import TimeArray
+        from pint_tpu_torch.toas.toas import TOAs
+
         site = (self.params["TZRSITE"].value or "@").lower()
-        if site not in BARYCENTRIC_SITES:
-            raise NotImplementedError(
-                f"TZRSITE {site!r}: a topocentric TZR arrival needs the "
-                "port's own ingest (ROADMAP A11); carry the reference's "
-                "ingested TZR row across instead")
-        day, sec = self.params["TZRMJD"].value
         frq = self.params["TZRFRQ"].value
-        return {
-            "tdb_day": np.array([float(day)]),
-            "tdb_sec_hi": np.array([float(sec.hi)]),
-            "tdb_sec_lo": np.array([float(sec.lo)]),
-            "freq_mhz": np.array([np.inf if frq is None else float(frq)]),
-            "error_us": np.array([1.0]),
-            "ssb_obs_pos_ls": np.zeros((1, 3)),
-            "obs_sun_pos_ls": np.zeros((1, 3)),
-            "pulse_number": np.array([np.nan]),
-            "padd": np.zeros(1),
-            "flags": [{}],
-        }
+        day, sec = self.params["TZRMJD"].value
+        scale = "tdb" if site in BARYCENTRIC_SITES else "utc"
+        t = TimeArray(np.array([int(day)]), HostDD([sec.hi], [sec.lo]),
+                      scale)
+        return TOAs(t, np.array([np.inf if frq is None else float(frq)]),
+                    np.array([1.0]), [site], [dict()])
+
+    def _tzr_config_key(self, model):
+        day, sec = self.params["TZRMJD"].value
+        ps = model.params.get("PLANET_SHAPIRO")
+        top = model.top_params
+        return (
+            int(day), float(sec.to_float()),
+            (self.params["TZRSITE"].value or "@").lower(),
+            self.params["TZRFRQ"].value,
+            top["EPHEM"].value if "EPHEM" in top else None,
+            top["CLOCK"].value if "CLOCK" in top else None,
+            bool(ps.value) if ps is not None else False,
+        )
+
+    def ingested_tzr_toas(self, model):
+        """The TZR TOAs ingested through the model's chain, memoized by
+        the TZR and chain configuration.  Built eagerly when the model is
+        built (``models/builder.py``), so the clock/EOP/ephemeris
+        environment in scope then is the one the reference arrival uses:
+        a later compile in another environment would otherwise anchor the
+        phase through a different chain."""
+        from pint_tpu_torch.toas.ingest import ingest_for_model
+
+        key = self._tzr_config_key(model)
+        memo = getattr(self, "_tzr_memo", None)
+        if memo is None or memo[0] != key:
+            toas = self.make_tzr_toas()
+            ingest_for_model(toas, model)
+            self._tzr_memo = (key, toas)
+        return self._tzr_memo[1]
+
+    def tzr_table(self, model) -> dict:
+        """The one-row host table of the TZR arrival, ingested through
+        ``model``'s chain (:meth:`ingested_tzr_toas`)."""
+        return self.ingested_tzr_toas(model).table()

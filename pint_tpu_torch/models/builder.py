@@ -15,11 +15,10 @@ converts the parameters to TDB (``tcb_conversion.py``).
 
 from __future__ import annotations
 
-import io
-import os
 import warnings
-from collections import OrderedDict
 
+from pint_tpu_torch.exceptions import PintTpuError
+from pint_tpu_torch.io.par import parse_parfile
 from pint_tpu_torch.models.absolute_phase import AbsPhase
 from pint_tpu_torch.models.astrometry import (
     Astrometry,
@@ -89,24 +88,32 @@ _TOP_FLOAT = ("NTOA", "TRES", "CHI2", "CHI2R")
 _TOP_MJD = ("START", "FINISH")
 
 
-def parse_parfile(text: str) -> "OrderedDict[str, list[list[str]]]":
-    """Par text -> {UPPER_NAME: [token-list, ...]} (repeats allowed)."""
-    out: OrderedDict[str, list[list[str]]] = OrderedDict()
-    for raw in io.StringIO(text):
-        line = raw.strip()
-        if not line or line.startswith("#"):
-            continue
-        if line.upper().startswith(("C ", "CC ")):
-            continue
-        line = line.split("#", 1)[0].strip()
-        tokens = line.split()
-        if tokens:
-            out.setdefault(tokens[0].upper(), []).append(tokens[1:])
-    return out
-
-
 class UnknownParameterWarning(UserWarning):
     """Par lines that no component accepts (the model still builds)."""
+
+
+class TZRDeferredWarning(UserWarning):
+    """The TZR reference arrival could not be ingested when the model
+    was built; it is ingested at compile, under the environment in scope
+    then."""
+
+
+def _ingest_tzr_eagerly(model: TimingModel) -> None:
+    """Ingest the TZR arrival now: the clock/EOP/ephemeris environment in
+    scope at build time is the one the reference arrival must use.  An
+    environment failure (unknown TZRSITE, missing or malformed data
+    files) must not break parse-only work: it warns, and compile raises
+    if it still cannot ingest then.  Anything else propagates."""
+    absph = model.components.get("AbsPhase")
+    if absph is None or not absph.anchored:
+        return
+    try:
+        absph.ingested_tzr_toas(model)
+    except (PintTpuError, OSError) as e:
+        warnings.warn(
+            f"TZR reference arrival could not be ingested at model build "
+            f"({e}); phase anchoring is deferred to compile() under the "
+            "environment in scope then", TZRDeferredWarning)
 
 
 def _choose(pardict) -> list:
@@ -149,22 +156,10 @@ def _top_param(name, tokens):
     return p
 
 
-def _par_text(par) -> str:
-    """The reference's ``utils/misc.py::lines_of`` rule: a str holding a
-    newline is par text; any other str or path is a file to read; else
-    ``par`` is an open file."""
-    if isinstance(par, str) and "\n" in par:
-        return par
-    if isinstance(par, (str, os.PathLike)):
-        with open(par) as f:
-            return f.read()
-    return par.read()
-
-
 def get_model(par) -> TimingModel:
     """Par file (path, text or open file) -> validated TimingModel of the
     ported components."""
-    pardict = parse_parfile(_par_text(par))
+    pardict = parse_parfile(par)
     units = pardict.get("UNITS", [["TDB"]])[0][0].upper()
     if units not in ("TDB", "TCB"):
         raise ValueError(f"UNITS {units!r}: only TDB and TCB par files")
@@ -206,4 +201,22 @@ def get_model(par) -> TimingModel:
         convert_tcb_tdb(model)
     model.setup()
     model.validate()
+    _ingest_tzr_eagerly(model)
     return model
+
+
+def get_model_and_toas(par, tim, ephem: str = None, planets: bool = None,
+                       usepickle: bool = False, **ingest_kw):
+    """Load a par/tim pair and ingest the TOAs through the model's chain
+    (its EPHEM, PLANET_SHAPIRO and CLOCK lines; ``ephem`` and
+    ``planets`` override them).  ``usepickle=True`` goes through the
+    ingest cache (``toas/cache.py::get_TOAs``).  -> (model, TOAs)."""
+    from pint_tpu_torch.toas.cache import get_TOAs
+
+    model = get_model(par)
+    if ephem is not None:
+        ingest_kw["ephem"] = ephem
+    if planets is not None:
+        ingest_kw["planets"] = planets
+    toas = get_TOAs(tim, model=model, usepickle=usepickle, **ingest_kw)
+    return model, toas

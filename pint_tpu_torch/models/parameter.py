@@ -22,6 +22,7 @@ from typing import Optional
 import numpy as np
 
 from pint_tpu_torch.constants import DEG_TO_RAD, HOUR_TO_RAD, SECS_PER_DAY
+from pint_tpu_torch.exceptions import PintTpuError, PrefixError
 from pint_tpu_torch.timebase.hostdd import HostDD, carry_days
 
 _FORTRAN_EXP = re.compile(r"[dD]")
@@ -157,6 +158,23 @@ class Parameter:
         fitters' ``print_summary`` table)."""
         return str(self._par_value())
 
+    def as_parfile_line(self) -> str:
+        """The parameter's par-file line ('' when unset), as the
+        reference's ``as_parfile_line`` writes it: name, value, the fit
+        flag when free, and the uncertainty."""
+        if self.value is None:
+            return ""
+        line = f"{self.name:<15} {self._format_value():>25}"
+        return line + self._fit_and_uncertainty()
+
+    def _fit_and_uncertainty(self) -> str:
+        tail = "" if self.frozen else " 1"
+        if self.uncertainty is not None:
+            if self.frozen:
+                tail += " 0"
+            tail += f" {self.uncertainty:.8g}"
+        return tail + "\n"
+
     def __repr__(self):
         fit = "" if self.frozen else " FIT"
         return f"<{type(self).__name__} {self.name}={self.value}{fit}>"
@@ -233,6 +251,9 @@ class boolParameter(Parameter):
         return v
 
     _from_internal = _to_internal
+
+    def _format_value(self):
+        return "Y" if self.value else "N"
 
 
 class strParameter(Parameter):
@@ -372,14 +393,17 @@ class maskParameter(floatParameter):
             self.key = key.lower()
             self.key_value = [float(tokens[1]), float(tokens[2])]
             rest = tokens[3:]
+        elif key.lower() in ("tel", "name"):
+            self.key = key.lower()
+            self.key_value = [tokens[1]]
+            rest = tokens[2:]
         elif key.startswith("-"):
             self.key = key
             self.key_value = [tokens[1]]
             rest = tokens[2:]
         else:
-            raise NotImplementedError(
-                f"mask parameter {self.name}: selection key {key!r} is not "
-                "ported yet (ROADMAP A11, the independent par/tim ingest)"
+            raise PintTpuError(
+                f"cannot parse mask parameter {self.name} key {key!r}"
             )
         if rest:
             super().set_from_tokens(rest)
@@ -387,21 +411,49 @@ class maskParameter(floatParameter):
             self.value = 0.0
 
     def select(self, toas) -> np.ndarray:
-        """Boolean mask over a TOA table (host-side)."""
+        """Boolean mask over a TOA table (host-side).  ``tel`` compares
+        the table's site codes case-insensitively with the key's, as the
+        reference does (an alias such as '1' for gbt is another code);
+        ``name`` reads the ``name`` flag."""
+        from pint_tpu_torch.toas.bundle import table_mjd
+
         n = len(toas["freq_mhz"])
         if self.key is None:
             return np.ones(n, dtype=bool)
         if self.key == "mjd":
-            m = toas["tdb_day"] + (
-                toas["tdb_sec_hi"] + toas["tdb_sec_lo"]
-            ) / SECS_PER_DAY
+            m = table_mjd(toas)
             return (m >= self.key_value[0]) & (m <= self.key_value[1])
         if self.key == "freq":
             f = toas["freq_mhz"]
             return (f >= self.key_value[0]) & (f <= self.key_value[1])
+        if self.key == "tel":
+            want = self.key_value[0].lower()
+            obs = toas.get("obs")
+            if obs is None:
+                raise ValueError(
+                    f"{self.name}: a 'tel' selection needs the table's "
+                    "site codes (an ingested TOAs' table has them)")
+            return np.array([o.lower() == want for o in obs], dtype=bool)
         flag = self.key.lstrip("-")
         want = str(self.key_value[0])
-        return np.array([str(f.get(flag, "")) == want for f in toas["flags"]])
+        return np.array([str(f.get(flag, "")) == want for f in toas["flags"]],
+                        dtype=bool)
+
+    def as_parfile_line(self) -> str:
+        """``PREFIX key key_value(s) value [fit] [unc]``, the selection
+        written as it was read."""
+        if self.value is None:
+            return ""
+        if self.key is None:
+            key_str = ""
+        elif self.key in ("mjd", "freq"):
+            key_str = (f"{self.key} {self.key_value[0]:.8f} "
+                       f"{self.key_value[1]:.8f} ")
+        else:
+            key_str = f"{self.key} {self.key_value[0]} "
+        prefix = re.sub(r"\d+$", "", self.name)
+        line = f"{prefix:<8} {key_str}{self._format_value()}"
+        return line + self._fit_and_uncertainty()
 
 
 class pairParameter(Parameter):
@@ -421,6 +473,10 @@ class pairParameter(Parameter):
     def _from_internal(self, i):
         return (i[0] / self.scale_to_internal, i[1] / self.scale_to_internal)
 
+    def _format_value(self):
+        a, b = self._par_value()
+        return f"{a:.17g} {b:.17g}"
+
 
 def prefix_index(name: str, prefix: str) -> Optional[int]:
     """Index of a prefixed-family name ('FB12', 'FB') -> 12; None if
@@ -430,3 +486,11 @@ def prefix_index(name: str, prefix: str) -> Optional[int]:
         return None
     tail = name[len(prefix):]
     return int(tail) if tail.isdigit() else None
+
+
+def split_prefixed_name(name: str) -> tuple[str, str, int]:
+    """'DMX_0017' -> ('DMX_', '0017', 17); 'F12' -> ('F', '12', 12)."""
+    m = re.match(r"^([A-Za-z0-9_]*?[A-Za-z_])(\d+)$", name)
+    if m is None:
+        raise PrefixError(f"{name!r} is not a prefixed parameter name")
+    return m.group(1), m.group(2), int(m.group(2))

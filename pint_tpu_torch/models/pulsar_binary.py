@@ -41,6 +41,7 @@ from pint_tpu_torch.models.parameter import (
 )
 from pint_tpu_torch.ops.dd import DD
 from pint_tpu_torch.ops.scalarmath import cos_p, exp_p, sin_p
+from pint_tpu_torch.toas.bundle import table_mjd
 
 _DEG = math.pi / 180.0
 _DEG_PER_YEAR = _DEG / SECS_PER_JULIAN_YEAR
@@ -213,9 +214,7 @@ class BinaryBTPiecewise(BinaryBT):
         return [f"BTX_{i:04d}" for i in self.piece_indices]
 
     def extra_masks(self, toas) -> dict:
-        mjd = np.asarray(toas["tdb_day"], np.float64) + (
-            np.asarray(toas["tdb_sec_hi"], np.float64)
-            + np.asarray(toas["tdb_sec_lo"], np.float64)) / SECS_PER_DAY
+        mjd = table_mjd(toas)
         out = {}
         for i in self.piece_indices:
             r1 = self.params[f"XR1_{i:04d}"].value

@@ -35,7 +35,7 @@ from pint_tpu_torch.ops.dd import DD
 from pint_tpu_torch.ops.phase import Phase
 from pint_tpu_torch.runtime.graphs import ProgramCache
 from pint_tpu_torch.timebase.hostdd import HostDD
-from pint_tpu_torch.toas.bundle import TOABundle, make_bundle
+from pint_tpu_torch.toas.bundle import TOABundle, as_table, make_bundle
 
 
 class TimingModel:
@@ -128,9 +128,11 @@ class TimingModel:
         return absph if absph is not None and absph.anchored else None
 
     def make_bundle(self, toas, device) -> TOABundle:
-        """Host TOA table -> device bundle with this model's masks, and
-        with its TZR row: the table's ``"tzr"`` row when it carries one,
-        else the barycentric row of ``AbsPhase.tzr_table``."""
+        """Host TOA table or TOAs -> device bundle with this model's
+        masks, and with its TZR row: the table's ``"tzr"`` row when it
+        carries one, else ``AbsPhase.tzr_table``'s (the TZR arrival
+        ingested through this model's chain)."""
+        toas = as_table(toas)
         bundle = make_bundle(toas, self._build_masks(toas), device)
         return self._with_tzr(bundle, toas.get("tzr"))
 
@@ -141,7 +143,7 @@ class TimingModel:
         if tzr_table is None:
             if bundle.tzr is not None:
                 return bundle
-            tzr_table = anchor.tzr_table()
+            tzr_table = anchor.tzr_table(self)
         tzr = make_bundle(tzr_table, self._build_masks(tzr_table,
                                                        noise=False),
                           bundle.device)
@@ -149,8 +151,9 @@ class TimingModel:
 
     def compile(self, toas, device=None,
                 subtract_mean: bool = True) -> "CompiledModel":
-        """Freeze against a host TOA table, or against a TOABundle that
-        is already on a device (``device`` must then agree with it)."""
+        """Freeze against a host TOA table or TOAs, or against a
+        TOABundle that is already on a device (``device`` must then
+        agree with it)."""
         if isinstance(toas, TOABundle):
             if device is not None and torch.device(device) != toas.device:
                 raise ValueError(
@@ -160,6 +163,19 @@ class TimingModel:
         else:
             bundle = self.make_bundle(toas, resolve_device(device))
         return CompiledModel(self, bundle, subtract_mean=subtract_mean)
+
+    def as_parfile(self) -> str:
+        """The model as par text: top-level lines, then every
+        component's parameters in evaluation order (reference:
+        ``TimingModel.as_parfile``), with a BINARY line for the binary
+        model so that the text reads back to the same model."""
+        lines = [p.as_parfile_line() for p in self.top_params.values()]
+        lines += [f"{'BINARY':<15} {c.binary_model_name:>25}\n"
+                  for c in self.components.values()
+                  if getattr(c, "binary_model_name", "")]
+        for c in self._ordered_components():
+            lines += [p.as_parfile_line() for p in c.params.values()]
+        return "".join(lines)
 
     def __repr__(self):
         return f"TimingModel({self.name}, [{', '.join(self.components)}])"

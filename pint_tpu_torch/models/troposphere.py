@@ -14,8 +14,9 @@ geometry rides in the bundle's masks like the other compile-time columns:
   TROPO:doy       day of year (the seasonal term)
 
 taken from the table's ``masks`` (the reference's ingested geometry, or
-a caller's), else zeros: a row without topocentric geometry (site '@')
-has no delay.
+a caller's), else from the geometry columns of the port's own ingest
+(``obs_elevation_rad``, ``obs_lat_rad``, ``obs_alt_m``), else zeros: a
+row without topocentric geometry (site '@') has no delay.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 from pint_tpu_torch.models.component import DelayComponent
 from pint_tpu_torch.models.parameter import boolParameter
 from pint_tpu_torch.ops.interp import interp
+from pint_tpu_torch.toas.bundle import table_mjd
 
 # Niell 1996 hydrostatic mapping coefficients at |lat| = 15, 30, 45, 60, 75
 _LAT_GRID = np.array([15.0, 30.0, 45.0, 60.0, 75.0]) * np.pi / 180.0
@@ -86,8 +88,20 @@ class TroposphereDelay(DelayComponent):
         return list(MASK_KEYS)
 
     def extra_masks(self, toas) -> dict:
-        n = len(toas["freq_mhz"])
-        return {k: np.zeros(n) for k in MASK_KEYS}
+        """The geometry columns of an ingested table (zeros without a
+        source elevation: barycentric data, or no astrometry at ingest)."""
+        elev = toas.get("obs_elevation_rad")
+        if elev is None:
+            n = len(toas["freq_mhz"])
+            return {k: np.zeros(n) for k in MASK_KEYS}
+        return {
+            "TROPO:sin_elev": np.sin(elev),
+            "TROPO:lat": np.asarray(toas["obs_lat_rad"]),
+            "TROPO:alt": np.asarray(toas["obs_alt_m"]),
+            # MJD 51544 = 2000-01-01; day-of-year mod 365.25 is plenty
+            # for the ~1e-5 seasonal term
+            "TROPO:doy": np.mod(table_mjd(toas) - 51544.0, 365.25),
+        }
 
     @staticmethod
     def zenith_hydrostatic_m(lat, alt_m):

@@ -1,11 +1,20 @@
-"""Simulated barycentric pulsars, built by the port alone.
+"""Simulated pulsars, built by the port alone.
 
-Counterpart of ``pint_tpu/simulation.py::make_test_pulsar`` for site-'@'
-(barycentric TDB) data: TOAs uniform in MJD with frequencies and receiver
-flags cycling, arrival times shifted until the port's own model phase is
-integer, then white jitter from ``np.random.default_rng(seed)``.  The
-host time arithmetic is the reference's (integer day + double-double
-seconds, carried exactly), so both packages build the same TOAs.
+Counterpart of ``pint_tpu/simulation.py``.  Two paths:
+
+- :func:`make_fake_toas_uniform` / :func:`make_fake_toas_fromtim` (and
+  :func:`make_test_pulsar` with ``obs=`` or ``mjds=``): port ``TOAs`` at
+  any observatory, ingested through the port's clock chain, TDB and
+  geometry (``toas/ingest.py``), the arrival times shifted until the
+  model phase is integer.  The phase inversion runs on the caller's
+  ``device``; the ingest between passes runs on the host, as in the
+  reference.
+- :func:`make_test_pulsar` without ``obs``: a host TOA table of
+  site-'@' (barycentric TDB) arrivals, uniform in MJD with frequencies
+  and receiver flags cycling, shifted to integer phase by the port's own
+  model, then white jitter from ``np.random.default_rng(seed)``.  The
+  host time arithmetic is the reference's (integer day + double-double
+  seconds, carried exactly), so both packages build the same TOAs.
 
 :func:`msp_par` writes the par text of the binary millisecond pulsar that
 ``chip_smoke.py`` and the tests drive: a NANOGrav-class ELL1 MSP modelled
@@ -34,6 +43,13 @@ import torch
 from pint_tpu_torch.constants import AU, C, SECS_PER_DAY
 from pint_tpu_torch.models.builder import get_model
 from pint_tpu_torch.timebase.hostdd import HostDD, carry_days
+from pint_tpu_torch.timebase.times import TimeArray
+from pint_tpu_torch.toas.ingest import (
+    BARY_SITES,
+    ingest_barycentric,
+    ingest_for_model,
+)
+from pint_tpu_torch.toas.toas import TOAs
 
 #: the binary MSP's observing frequencies (MHz), cycled over the TOAs
 #: while the receiver flags cycle over (L-wide, S-wide): every frequency
@@ -187,7 +203,7 @@ def _with_geometry(table, model, orbit: bool, start_mjd: float):
     anchor = model.tzr_anchor
     if anchor is not None:
         day, sec = anchor.params["TZRMJD"].value
-        table["tzr"] = place(anchor.tzr_table(), np.array([float(day)]),
+        table["tzr"] = place(anchor.tzr_table(model), np.array([float(day)]),
                              HostDD([sec.hi], [sec.lo]))
     return table
 
@@ -204,15 +220,132 @@ def orbit_pos_m(mjd_int, sec: HostDD, start_mjd: float):
     )
 
 
+def _ingest(toas: TOAs, model):
+    if all(o.lower() in BARY_SITES for o in toas.obs):
+        ingest_barycentric(toas)
+    else:
+        ingest_for_model(toas, model)
+
+
+def _invert_to_integer_phase(toas: TOAs, model, iterations, device):
+    """Shift arrival times until the model phase is (near-)integer: each
+    pass evaluates the residuals on ``device`` and re-ingests on the
+    host."""
+    for _ in range(iterations):
+        cm = model.compile(toas, device=device, subtract_mean=False)
+        cm.track_mode = "nearest"
+        resid = cm.time_residuals(cm.x0(), subtract_mean=False)
+        toas.t = toas.t.add_seconds(-resid.cpu().numpy())
+        _ingest(toas, model)
+
+
+def _add_white_noise(toas: TOAs, model, rng):
+    rng = rng or np.random.default_rng()
+    toas.t = toas.t.add_seconds(rng.normal(0.0, toas.error_us * 1e-6))
+    _ingest(toas, model)
+
+
+def make_fake_toas_uniform(start_mjd: float, end_mjd: float, ntoa: int,
+                           model, error_us: float = 1.0, freq_mhz=1400.0,
+                           obs="@", add_noise: bool = False, rng=None,
+                           iterations: int = 3, mjds=None, *,
+                           device=None) -> TOAs:
+    """Uniformly spaced TOAs whose model phase is (near-)integer
+    (reference: ``simulation.make_fake_toas_uniform``).
+
+    ``obs`` may be one code, a full per-TOA sequence (paired with the
+    given ``mjds``, permuted together if they need sorting), or a short
+    pattern that cycles over the time-sorted grid; ``mjds`` overrides
+    the uniform grid with explicit epochs.  The inversion's residual
+    sweeps run on ``device`` (None: the CUDA card)."""
+    obs_list = None if isinstance(obs, str) else list(obs)
+    if mjds is None:
+        mjds = np.linspace(start_mjd, end_mjd, ntoa)
+    else:
+        mjds = np.asarray(mjds, dtype=np.float64)
+        ntoa = len(mjds)
+        order = np.argsort(mjds, kind="stable")
+        if obs_list is not None and len(obs_list) == ntoa:
+            obs_list = [obs_list[i] for i in order]  # keep the pairing
+        mjds = mjds[order]
+    freq = np.broadcast_to(np.asarray(freq_mhz, dtype=np.float64),
+                           (ntoa,)).copy()
+    t = TimeArray.from_mjd_float(mjds, scale="utc")
+    if obs_list is None:
+        obs_list = [obs] * ntoa
+    elif len(obs_list) != ntoa:
+        if len(obs_list) > ntoa:
+            raise ValueError(
+                f"obs sequence ({len(obs_list)}) longer than ntoa "
+                f"({ntoa}); pass exactly ntoa codes or a short pattern")
+        obs_list = [obs_list[i % len(obs_list)] for i in range(ntoa)]
+    toas = TOAs(t, freq, np.full(ntoa, error_us), obs_list,
+                [dict() for _ in range(ntoa)])
+    _ingest(toas, model)
+    _invert_to_integer_phase(toas, model, iterations, device)
+    if add_noise:
+        _add_white_noise(toas, model, rng)
+    return toas
+
+
+def make_fake_toas_fromtim(tim, model, add_noise: bool = False, rng=None,
+                           iterations: int = 3, *, device=None) -> TOAs:
+    """Model-perfect TOAs at the epochs, frequencies, errors and sites of
+    an existing tim file (a path) or TOAs object, which is copied, never
+    changed (reference: ``simulation.make_fake_toas_fromtim``)."""
+    import os
+
+    from pint_tpu_torch.io.tim import get_TOAs_from_tim
+
+    if isinstance(tim, (str, bytes, os.PathLike)):
+        toas = get_TOAs_from_tim(tim)
+    else:
+        toas = tim[:]  # slice-copy: the caller's object stays intact
+    _ingest(toas, model)
+    _invert_to_integer_phase(toas, model, iterations, device)
+    if add_noise:
+        _add_white_noise(toas, model, rng)
+    return toas
+
+
+def _make_test_pulsar_toas(par, ntoa, start_mjd, end_mjd, seed, jitter_us,
+                           freqs, flags, obs, error_us, iterations, mjds,
+                           device):
+    """make_test_pulsar's ingested path (the reference's): TOAs at
+    ``obs`` through :func:`make_fake_toas_uniform`, receiver flags, white
+    jitter, a last ingest."""
+    rng = np.random.default_rng(seed)
+    model = get_model(par)
+    if mjds is not None:
+        ntoa = len(mjds)
+    toas = make_fake_toas_uniform(
+        start_mjd, end_mjd, ntoa, model, error_us=error_us,
+        freq_mhz=np.resize(np.asarray(freqs, dtype=np.float64), ntoa),
+        obs=obs, iterations=iterations, mjds=mjds, device=device)
+    for i, f in enumerate(toas.flags):
+        f["f"] = flags[i % len(flags)]
+    if jitter_us:
+        toas.t = toas.t.add_seconds(rng.normal(0.0, jitter_us * 1e-6, ntoa))
+    _ingest(toas, model)
+    return model, toas
+
+
 def make_test_pulsar(par: str, ntoa: int = 64, start_mjd: float = 54000.0,
                      end_mjd: float = 56000.0, seed: int = 0,
                      jitter_us: float = 1.0, freqs=(1400.0, 800.0),
                      flags=("L-wide", "S-wide"), error_us: float = 1.0,
                      iterations: int = 3, orbit: bool = False,
                      orbit_in_phase: bool = False, device=None,
-                     dm_error: float | None = None):
-    """Build (model, toas): the port's model from ``par`` and a TOA table
-    of ``ntoa`` barycentric arrivals.
+                     dm_error: float | None = None, obs=None, mjds=None):
+    """Build (model, toas): the port's model from ``par`` and ``ntoa``
+    simulated arrivals.
+
+    With ``obs`` (one code, a per-TOA sequence or a cycling pattern) or
+    ``mjds`` (explicit epochs), the reference's path: ingested port
+    ``TOAs`` at those sites (``obs`` defaults to '@' then), as
+    ``pint_tpu/simulation.py::make_test_pulsar`` builds them.
+
+    Without either, a host TOA table of barycentric arrivals:
 
     ``orbit=True`` then puts the observatory on a synthetic circular 1-AU
     orbit in the x-y plane with a one-year period, phased from
@@ -227,6 +360,15 @@ def make_test_pulsar(par: str, ntoa: int = 64, start_mjd: float = 54000.0,
     (``CompiledModel.dm_model`` at the par values) plus N(0, dm_error)
     noise drawn after the timing jitter.
     ``device`` is where the inversion's residual sweeps run."""
+    if obs is not None or mjds is not None:
+        if orbit or dm_error is not None:
+            raise ValueError(
+                "orbit and dm_error apply to the barycentric table path "
+                "only (no obs=, no mjds=)")
+        return _make_test_pulsar_toas(
+            par, ntoa, start_mjd, end_mjd, seed, jitter_us, freqs, flags,
+            "@" if obs is None else obs, error_us, iterations, mjds,
+            device)
     rng = np.random.default_rng(seed)
     model = get_model(par)
     mjds = np.linspace(start_mjd, end_mjd, ntoa)
@@ -268,8 +410,8 @@ def make_population(par: str, npsr: int, ntoa: int = 64, seed: int = 0,
     ``spread`` relative draws (absolute for zero values) from
     ``default_rng(seed + 0x5EED)``; epochs and pair parameters stay.
     Returns ``(models, toas)``, ``models[0]`` the base model.  The
-    reference returns par texts; the port writes no par files yet
-    (ROADMAP A11), so it returns the models."""
+    reference returns par texts; writing them is the second half of
+    ROADMAP A11, so the port returns the models."""
     if npsr < 1:
         raise ValueError(f"make_population needs npsr >= 1, got {npsr}")
     model, toas = make_test_pulsar(par, ntoa=ntoa, seed=seed,

@@ -1,10 +1,10 @@
 """Host (numpy) double-double values for load-time code.
 
-Counterpart of ``pint_tpu/timebase/hostdd.py``, cut to what the port's
-slice needs: exact decimal-string parsing of par-file values, and the
-add/multiply/normalize arithmetic that epoch commits and the simulation's
-arrival-time shifts run on the host.  numpy guarantees IEEE f64 with no
-contraction, so these transforms are exact.
+Counterpart of ``pint_tpu/timebase/hostdd.py``: exact decimal-string
+parsing of par-file and tim-file values, and the add/multiply/divide/
+normalize arithmetic that epoch commits, the simulation's arrival-time
+shifts and the ingest's time-scale chain run on the host.  numpy
+guarantees IEEE f64 with no contraction, so these transforms are exact.
 """
 
 from __future__ import annotations
@@ -65,8 +65,19 @@ class HostDD:
         )
 
     @staticmethod
-    def from_string(s: str) -> "HostDD":
-        return HostDD(*parse_decimal(s))
+    def from_sum(a, b) -> "HostDD":
+        """a + b exactly (a, b f64)."""
+        return HostDD(*_two_sum(np.asarray(a, dtype=np.float64),
+                                np.asarray(b, dtype=np.float64)))
+
+    @staticmethod
+    def from_string(s) -> "HostDD":
+        """Exact decimal-string parse; ``s`` a str or a sequence of str."""
+        if isinstance(s, str):
+            return HostDD(*parse_decimal(s))
+        pairs = [parse_decimal(x) for x in s]
+        return HostDD(np.array([p[0] for p in pairs]),
+                      np.array([p[1] for p in pairs]))
 
     @staticmethod
     def from_prod(a, b) -> "HostDD":
@@ -117,6 +128,19 @@ class HostDD:
 
     def __float__(self):
         return float(self.hi + self.lo)
+
+    @property
+    def shape(self):
+        return self.hi.shape
+
+    def __len__(self):
+        return len(self.hi)
+
+    def __getitem__(self, idx):
+        return HostDD(self.hi[idx], self.lo[idx])
+
+    def __repr__(self):
+        return f"HostDD(hi={self.hi!r}, lo={self.lo!r})"
 
 
 def carry_days(mjd_int, sec: HostDD, day_len: float = 86400.0):

@@ -12,6 +12,11 @@ Counterpart of ``pint_tpu/toas/bundle.py``.  Host data arrives as a TOA
   obs_planet_pos_ls       dict body -> (n, 3), light-seconds
   pulse_number, padd      (n,) (NaN pulse numbers: untracked)
   flags                   optional list of per-TOA flag dicts
+  obs                     optional list of per-TOA site codes
+  mjd_float               optional (n,) arrival MJDs: the range
+                          selections' epochs (else the TDB epochs)
+  obs_lat_rad, obs_alt_m, obs_elevation_rad
+                          optional (n,) troposphere geometry
   masks                   optional dict of precomputed (n,) or (n, k)
                           columns (mask selections, noise bases)
   tzr                     optional one-row table of the same layout: the
@@ -21,7 +26,9 @@ Counterpart of ``pint_tpu/toas/bundle.py``.  Host data arrives as a TOA
                           ``pp_dm`` / ``pp_dme`` flags when every TOA
                           carries a ``pp_dm`` (:func:`is_wideband`)
 
-and :func:`make_bundle` moves it to the device once.  Absolute epochs stay
+and :func:`make_bundle` moves it to the device once.  A port ``TOAs``
+(``toas/toas.py``) stands for its table wherever one is taken
+(:func:`as_table`).  Absolute epochs stay
 an exact day plus DD seconds, so kernels form dt against model epochs in
 DD; geometry is in light-seconds, so delays are plain f64 dot products.
 """
@@ -76,6 +83,14 @@ class TOABundle(NamedTuple):
         return big + (self.tdb_sec - epoch_sec)
 
 
+def as_table(toas):
+    """The host TOA table of ``toas``: a port ``TOAs`` gives
+    ``TOAs.table()``; a table (dict) is returned as it is."""
+    from pint_tpu_torch.toas.toas import TOAs
+
+    return toas.table() if isinstance(toas, TOAs) else toas
+
+
 def is_wideband(toas) -> bool:
     """Whether every TOA of a host TOA table carries a wideband DM
     measurement: a ``dm_meas`` column without NaN, or a ``pp_dm`` flag
@@ -83,6 +98,7 @@ def is_wideband(toas) -> bool:
     whether it holds DM measurements."""
     if isinstance(toas, TOABundle):
         return toas.dm_meas is not None
+    toas = as_table(toas)
     if toas.get("dm_meas") is not None:
         dm = np.asarray(toas["dm_meas"], np.float64)
         return dm.size > 0 and not np.isnan(dm).any()
@@ -98,6 +114,7 @@ def get_dm_measurements(toas):
         return tuple(
             np.full(toas.ntoa, np.nan) if v is None
             else v.detach().cpu().numpy() for v in (toas.dm_meas, toas.dm_err))
+    toas = as_table(toas)
     n = len(toas["freq_mhz"])
     if toas.get("dm_meas") is not None:
         dme = toas.get("dm_err")
@@ -111,7 +128,8 @@ def get_dm_measurements(toas):
 
 
 def make_bundle(toas, masks, device) -> TOABundle:
-    """Host TOA table (+ mask/basis columns) -> device bundle."""
+    """Host TOA table or TOAs (+ mask/basis columns) -> device bundle."""
+    toas = as_table(toas)
     n = len(toas["freq_mhz"])
     dm_meas, dm_err = (get_dm_measurements(toas) if is_wideband(toas)
                        else (None, None))
@@ -153,8 +171,13 @@ def make_bundle(toas, masks, device) -> TOABundle:
 
 
 def table_mjd(toas) -> np.ndarray:
-    """MJD(TDB) of each row of a host TOA table, as f64 days (the range
-    and epoch selections of the mask columns)."""
+    """MJD of each row of a host TOA table, as f64 days (the range and
+    epoch selections of the mask columns): its ``mjd_float`` arrival
+    MJDs when it has them (an ingested ``TOAs``' table, as the reference
+    selects), else its TDB epochs (the same numbers for barycentric
+    data)."""
+    if toas.get("mjd_float") is not None:
+        return np.asarray(toas["mjd_float"], np.float64)
     return np.asarray(toas["tdb_day"], np.float64) + (
         np.asarray(toas["tdb_sec_hi"], np.float64)
         + np.asarray(toas["tdb_sec_lo"], np.float64)) / SECS_PER_DAY
@@ -169,7 +192,7 @@ def take_rows(toas: dict, idx) -> dict:
     n = len(toas["freq_mhz"])
     out = {}
     for key, v in toas.items():
-        if key == "flags":
+        if key in ("flags", "obs"):
             out[key] = None if v is None else [v[i] for i in idx]
         elif key in ("obs_planet_pos_ls", "masks"):
             out[key] = None if v is None else {

@@ -12,9 +12,9 @@ simulates with the orbit inside the phases, on which the f64 step's
 spread under rounding is measured (ROADMAP C, R4).
 The reference runs once per module in a subprocess
 (tests/torch_reference.py) and its state is carried across with
-``pint_tpu_torch.convert.state_from_numpy`` (the port cannot read .tim
-files yet, ROADMAP A11), so both packages compute on byte-identical
-inputs.  Tolerances are stated per test.
+``pint_tpu_torch.convert.state_from_numpy``, so both packages compute on
+byte-identical inputs (the port's own ingest of the same tim files is
+held to the reference's in tests/test_torch_ingest.py).  Tolerances are stated per test.
 """
 
 import math

@@ -260,9 +260,9 @@ def test_get_model_values_equal_reference(ref, name):
 def test_port_model_on_reference_toas(ref, stem):
     """The port's own model, ``get_model`` of the golden's par text
     (golden23 from its UNITS TCB text), compiled on the reference's TOA
-    table (the port reads no .tim file, ROADMAP A11; golden22's TZR row
-    comes with it): within 1 ns of the oracle and 1e-11 s of the
-    reference's residuals."""
+    table (golden22's TZR row comes with it; the port's own ingest of
+    the tim files is tests/test_torch_ingest.py's): within 1 ns of the
+    oracle and 1e-11 s of the reference's residuals."""
     cm = get_model(_par(stem)).compile(load_state(ref, stem)["bundle"],
                                        device="cpu")
     r = cm.time_residuals(cm.x0()).numpy()
@@ -462,8 +462,13 @@ def test_simulated_tzr_row_uses_data_geometry():
                                   if i != 4])
 def test_get_model_accepts_every_narrowband_line(stem):
     """Every par line of goldens 1-3 and 5-23 is ported, golden17's
-    wideband DMJUMP, DMEFAC and DMEQUAD included."""
-    with warnings.catch_warnings():
+    wideband DMJUMP, DMEFAC and DMEQUAD included.  The model is built in
+    the committed data environment: building it ingests golden22's
+    topocentric TZR arrival, which would otherwise warn of the missing
+    clock files, EOP table and ephemeris kernel."""
+    from torch_ingest_env import port_ingest_env
+
+    with warnings.catch_warnings(), port_ingest_env():
         warnings.simplefilter("error")
         model = get_model(_par(stem))
         assert model.unrecognized == {}

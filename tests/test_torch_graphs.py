@@ -261,9 +261,8 @@ def test_pta_batched_step_holds_no_host_read(no_host_reads, monkeypatch,
 
 
 #: every golden composition the port simulates (golden22's topocentric
-#: TZR row needs the port's own ingest, ROADMAP A11; its AbsPhase is the
-#: full-width pulsar's below)
-GOLDENS = [f"golden{i}" for i in range(1, 24) if i != 22]
+#: TZR row through the port's own ingest)
+GOLDENS = [f"golden{i}" for i in range(1, 24)]
 #: the wideband compositions, simulated with a DM measurement a TOA
 WIDEBAND = ("golden4", "golden17", "msp_wideband")
 
