@@ -202,6 +202,25 @@ Phases, each of which raises on failure (exit code != 0):
    launched), every fitted value within 3 sigma of the par value (the
    simulation's truth); a 2048-TOA topocentric copy card vs CPU
    (residuals 1e-11 s, f64 step 1e-8).
+15. the command-line tools, each through its ``main(argv)`` with
+   ``--device cuda``, in the committed data environment: ``zima`` writes
+   1e5 TOAs at gbt from phase 14's par and ``pintempo`` fits them
+   (``auto_fitter`` on its native rung, ``fused_gram_joint`` counted from
+   0 and launched, fit.par read back by ``get_model`` where ``compare``
+   may flag only fitted values whose par-file digits lose their last bits,
+   each within 1e-6 sigma of the fit, every value within 3 sigma of the
+   truth); ``photonphase`` on 1e6 barycentred events over golden22's span
+   with its TZR-anchored model (PULSE_PHASE equal to the card's absolute
+   phase mod 1 bit for bit, a 2048-event subset on the CPU within F0 x
+   1e-11 cycles); polycos of the binary MSP over one day at '@' and at
+   gbt (60-minute segments, 12 coefficients: 1e4 off-node epochs within
+   1e-6 cycles of the card's phase, a write/read roundtrip within 1e-6);
+   ``event_optimize`` on 1e5 weighted photons of a two-Gaussian template
+   over 1000 s with F0 started 1e-4 Hz off (16 walkers x 400 steps,
+   every step a replay of one step program, F0 within 3e-5);
+   ``compare_parfiles``,
+   ``tcb2tdb``, ``t2binary2pint``, ``pintbary`` and ``pintpublish`` once
+   each on small inputs.  Each tool's host seconds are printed.
 
 Every fit above runs its steps as replays of step programs
 (``runtime/graphs.py``: CUDA graphs captured once, after one eager
@@ -233,11 +252,10 @@ its q = 350 entry with the launches of phase 8's fits, under
 ``wideband`` and ``pta`` those of phases 9 and 10, and under ``dense``,
 ``stream`` and ``inference`` phases 11, 12 and 13's results with their
 zero launches, under ``ingest`` phase 14's results and the launches of
-its fit),
-nvidia-smi's
-name and power limit, and ``{"ok": true, "device": {...}}``.  Without a
-CUDA device, or without the package beside it, the script exits non-zero
-before printing any result.
+its fit, under ``tools`` phase 15's results and under ``tools_launches``
+those of pintempo's fit), nvidia-smi's name and power limit, and
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+package beside it, the script exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -2469,6 +2487,335 @@ def ingest_phase(dev):
     return out
 
 
+#: phase 15, the command-line tools: photons of golden22's model for
+#: photonphase, the CPU's subset of them, the polyco epochs, and
+#: event_optimize's photons, walkers and steps (the reference test's)
+TOOLS_PHOTONS = 1_000_000
+TOOLS_CPU_SUBSET = 2048
+POLY_START, POLY_EPOCHS = 55000.0, 10_000
+OPT_PHOTONS, OPT_WALKERS, OPT_STEPS = 100_000, 16, 400
+#: event_optimize's photons span 1000 s: at 1e5 photons over the test's
+#: 3000 s the log-likelihood in F0 has side modes 1.9e-4 Hz from the truth,
+#: and a walk started 1e-4 Hz off can settle in one; over 1000 s none lies
+#: within 5e-4 Hz (profiling/torch_event_optimize_modes.py)
+OPT_SPAN_S = 1000.0
+OPT_F0 = 245.4261196898081
+OPT_PAR = ("PSR J1744-1134\nF0 245.4261196898081 1\nF1 -5.38e-16 1\n"
+           "PEPOCH 55000\nDM 3.1380 1\n")
+OPT_START_PAR = ("PSR J1744-1134\nF0 245.42621968980 1\nPEPOCH 55000\n"
+                 "DM 3.138\n")
+T2_PAR = OPT_PAR + ("BINARY T2\nPB 1.5\nA1 3.2\nTASC 55000.1\n"
+                    "EPS1 1.2e-5\nEPS2 -0.7e-5\n")
+
+
+def run_tool(main_fn, argv):
+    """A tool's ``main(argv)`` with its standard output captured: it must
+    return 0.  -> (its output, host seconds)."""
+    import contextlib
+    import io
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    secs = time.perf_counter() - t0
+    check(rc == 0, f"{main_fn.__module__} exited {rc}")
+    return buf.getvalue(), secs
+
+
+def spy_on(module, name, record):
+    """Replace ``module.name`` by a wrapper that appends (args, kwargs,
+    result, host seconds) to ``record``; -> the original."""
+    real = getattr(module, name)
+
+    def spy(*a, **kw):
+        t0 = time.perf_counter()
+        res = real(*a, **kw)
+        record.append((a, kw, res, time.perf_counter() - t0))
+        return res
+
+    setattr(module, name, spy)
+    return real
+
+
+def zima_pintempo(dev, tmp, argdev):
+    """zima writes 1e5 TOAs at gbt from phase 14's topocentric par;
+    pintempo fits them on the card (auto_fitter, native rung,
+    ``fused_gram_joint`` launched), writes fit.par, which reads back to
+    the fitter's model with no parameter flagged by ``compare``, every
+    fitted value within 3 sigma of the truth."""
+    import pint_tpu_torch.fitting as fitting_mod
+    from pint_tpu_torch.scripts import pintempo, zima
+
+    par, tim, fitpar = tmp / "topo.par", tmp / "topo_gbt.tim", tmp / "fit.par"
+    par.write_text(TOPO_PAR)
+    out = {}
+    _, out["zima_s"] = run_tool(zima.main, [
+        str(par), str(tim), "--ntoa", str(NTOA), "--startMJD", "54500",
+        "--duration", "1400", "--obs", "gbt", "--freq", "1400", "800",
+        "--addnoise", "--seed", "0", *argdev])
+    fits = []
+    real = spy_on(fitting_mod, "auto_fitter", fits)
+    zero_counts()
+    try:
+        _, out["pintempo_s"] = run_tool(pintempo.main, [
+            str(par), str(tim), "--outfile", str(fitpar), *argdev])
+        torch.cuda.synchronize()
+    finally:
+        fitting_mod.auto_fitter = real
+    out["launches"] = read_counts()
+    f = fits[0][2]
+    rep = f.guard_report
+    out.update(fitter=type(f).__name__, rung=rep.rung, niter=f.niter,
+               converged=f.converged, chi2=f.chi2)
+    log(f"tools: zima {NTOA} TOAs at gbt {out['zima_s']:.2f} s; pintempo "
+        f"{out['pintempo_s']:.2f} s: {out}")
+    check(rep.rung == "native" and not rep.fell_back,
+          f"pintempo's fit was served by rung {rep.rung}: {rep.history}")
+    n_gram = out["launches"]["fused_gram_joint"]
+    check(n_gram > 0, f"pintempo's fit launched fused_gram_joint {n_gram}")
+    # fit.par read back: compare flags a fitted value whose par-file
+    # digits (the reference's format: F0 to 25 significant digits, the
+    # angles to fixed arcsecond decimals) do not give back its last bits;
+    # each such value must be the fitted one within 1e-6 sigma, and no
+    # other parameter may be flagged
+    sig = np.sqrt(np.diag(f.parameter_covariance_matrix))
+    back = get_model(str(fitpar))
+    out["compare_flagged"] = [line.split()[0] for line in back.compare(
+        f.model).splitlines() if line.endswith("*")]
+    out["par_roundtrip_sigma"] = value_gaps(back, f.model, f.cm.free_names,
+                                            sig)
+    check(set(out["compare_flagged"]) <= set(f.cm.free_names)
+          and max(out["par_roundtrip_sigma"].values()) <= 1e-6,
+          f"fit.par read back differs from the fit: "
+          f"{out['compare_flagged']}, {out['par_roundtrip_sigma']}")
+    gaps = value_gaps(f.model, get_model(TOPO_PAR), f.cm.free_names, sig)
+    out["vs_truth_sigma"] = gaps
+    worst = max(gaps, key=gaps.get)
+    log(f"tools: pintempo's values vs the truth (sigma): {gaps}")
+    check(gaps[worst] <= 3.0, f"pintempo: {worst} is {gaps[worst]} sigma "
+          "off the truth")
+    return out, par, fitpar
+
+
+def photon_tools(dev, tmp, argdev):
+    """photonphase on 1e6 barycentred events over golden22's span with its
+    TZR-anchored model: PULSE_PHASE equal to the card's absolute phase
+    mod 1 bit for bit; a 2048-event subset on the CPU within F0 x 1e-11
+    cycles of the card."""
+    from pint_tpu_torch import event_toas
+    from pint_tpu_torch.io.fits import get_bintable, write_event_fits
+    from pint_tpu_torch.scripts import photonphase
+
+    g22 = GOLDEN_DIR / "golden22.par"
+    rng = np.random.default_rng(22)
+    met = np.sort(rng.uniform(0.0, (55890.0 - 54600.0) * 86400.0,
+                              TOOLS_PHOTONS))
+    ev, phased = tmp / "g22_events.fits", tmp / "g22_phase.fits"
+    write_event_fits(str(ev), {"TIME": met}, header_extra={
+        "MJDREFI": 54600, "MJDREFF": 0.0, "TIMEZERO": 0.0, "TIMESYS": "TDB",
+        "TELESCOP": "SIM"})
+    loads = []
+    real = spy_on(event_toas, "load_event_TOAs", loads)
+    try:
+        text, secs = run_tool(photonphase.main, [
+            str(ev), str(g22), "--outfile", str(phased), *argdev])
+    finally:
+        event_toas.load_event_TOAs = real
+    toas = loads[0][2]
+    out = dict(photons=TOOLS_PHOTONS, photonphase_s=secs,
+               load_s=loads[0][3],
+               htest=float(text.split("Htest :")[1].split()[0]))
+    # the load's one flags dict a photon (event_toas.py, as the
+    # reference builds them), timed alone
+    t0 = time.perf_counter()
+    [{"photon": "1", "mission": "generic"} for _ in range(TOOLS_PHOTONS)]
+    out["flags_dicts_s"] = time.perf_counter() - t0
+    col = np.asarray(get_bintable(str(phased)).column("PULSE_PHASE"))
+    model = get_model(str(g22))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cm = model.compile(toas, device=dev, subtract_mean=False)
+    frac = cm.absolute_phase(cm.x0()).frac.cpu().numpy()
+    out["phase_s"] = time.perf_counter() - t0
+    out["bitwise"] = bool(np.array_equal(col, np.mod(frac, 1.0)))
+    sub = toas[:TOOLS_CPU_SUBSET]
+    cmc = model.compile(sub, device="cpu", subtract_mean=False)
+    d = np.abs(frac[:TOOLS_CPU_SUBSET]
+               - cmc.absolute_phase(cmc.x0()).frac.numpy())
+    out["card_vs_cpu_cycles"] = float(np.max(np.minimum(d, 1.0 - d)))
+    f0 = float(model.params["F0"].value.to_float())
+    log(f"tools: photonphase {out}")
+    check(out["bitwise"], "PULSE_PHASE differs from the card's phase")
+    check(out["card_vs_cpu_cycles"] <= f0 * 1e-11,
+          f"photon phases card vs CPU: {out['card_vs_cpu_cycles']} cycles")
+    return out
+
+
+def polyco_tools(dev, tmp):
+    """Polycos of the binary MSP over one day (60-minute segments, 12
+    coefficients) at '@' and at gbt: 1e4 off-node epochs within 1e-6
+    cycles of the model's absolute phase on the card, and a write/read
+    roundtrip within 1e-6 cycles."""
+    from pint_tpu_torch.polycos import Polycos
+    from pint_tpu_torch.timebase.times import TimeArray
+    from pint_tpu_torch.toas.toas import TOAs
+
+    model = get_model(msp_par(MSP_NDMX))
+    rng = np.random.default_rng(15)
+    out = {}
+    for obs in ("@", "gbt"):
+        t0 = time.perf_counter()
+        pcs = Polycos.generate(model, POLY_START, POLY_START + 1.0, obs=obs,
+                               segment_minutes=60.0, ncoeff=12, device=dev)
+        gen_s = time.perf_counter() - t0
+        mjds = POLY_START + np.sort(rng.uniform(0.0, 1.0, POLY_EPOCHS))
+        toas = TOAs(TimeArray.from_mjd_float(mjds, scale="utc"),
+                    np.full(POLY_EPOCHS, 1400.0), np.ones(POLY_EPOCHS),
+                    [obs] * POLY_EPOCHS, [dict() for _ in range(POLY_EPOCHS)])
+        ingest_for_model(toas, model)
+        cm = model.compile(toas, device=dev, subtract_mean=False)
+        ph = cm.absolute_phase(cm.x0())
+        t0 = time.perf_counter()
+        ints, fracs = pcs.eval_abs_phase(mjds)
+        eval_s = time.perf_counter() - t0
+        gap = float(np.max(np.abs((ints - ph.int_.cpu().numpy())
+                                  + (fracs - ph.frac.cpu().numpy()))))
+        path = tmp / f"polyco_{'bary' if obs == '@' else obs}.dat"
+        pcs.write(path)
+        i2, f2 = Polycos.read(path).eval_abs_phase(mjds)
+        rt = float(np.max(np.abs((ints - i2) + (fracs - f2))))
+        out[obs] = dict(segments=len(pcs.entries), generate_s=gen_s,
+                        eval_s=eval_s, gap_cycles=gap, roundtrip_cycles=rt)
+        check(gap < 1e-6, f"polycos at {obs}: {gap} cycles off the model")
+        check(rt < 1e-6, f"polycos at {obs}: write/read moved {rt} cycles")
+    log(f"tools: polycos of the MSP over one day: {out}")
+    return out
+
+
+def optimize_tool(dev, tmp, argdev):
+    """event_optimize on 1e5 weighted photons over ``OPT_SPAN_S`` drawn
+    from a two-Gaussian template (each pulsed with its weight as
+    probability), F0 started 1e-4 Hz off: 16 walkers x 400 steps, every
+    step a replay of one step program, F0 within 3e-5 of the truth."""
+    from pint_tpu_torch import sampler
+    from pint_tpu_torch.event_toas import load_event_TOAs
+    from pint_tpu_torch.io.fits import write_event_fits
+    from pint_tpu_torch.scripts import event_optimize
+    from pint_tpu_torch.toas.ingest import ingest_barycentric
+
+    truth = LCTemplate([LCGaussian(width=0.03, loc=0.3),
+                        LCGaussian(width=0.08, loc=0.7)], weights=[0.35, 0.25])
+    rng = np.random.default_rng(16)
+    met = rng.uniform(0.0, OPT_SPAN_S, OPT_PHOTONS)
+    w = rng.uniform(0.0, 1.0, OPT_PHOTONS)
+    hdr = {"MJDREFI": 55000, "MJDREFF": 0.0, "TIMEZERO": 0.0,
+           "TIMESYS": "TDB"}
+    ev = tmp / "opt_events.fits"
+    write_event_fits(str(ev), {"TIME": met}, header_extra=hdr)
+    toas = load_event_TOAs(str(ev))
+    ingest_barycentric(toas)
+    order = np.argsort(met, kind="stable")
+    met, w = met[order], w[order]
+    cm = get_model(OPT_PAR).compile(toas, device=dev, subtract_mean=False)
+    model_ph = cm.phase(cm.x0()).frac.cpu().numpy()
+    pulsed = rng.uniform(size=OPT_PHOTONS) < w
+    want = rng.uniform(size=OPT_PHOTONS)
+    want[pulsed] = truth.random(int(pulsed.sum()), rng=rng, device=dev)
+    # move each photon by less than a period onto its drawn phase
+    shift = np.mod(want - model_ph + 0.5, 1.0) - 0.5
+    met = met + shift / OPT_F0
+    order = np.argsort(met, kind="stable")
+    write_event_fits(str(ev), {"TIME": met[order], "WEIGHT": w[order]},
+                     header_extra=hdr)
+    par, gauss, post = tmp / "opt.par", tmp / "opt.gauss", tmp / "post.par"
+    par.write_text(OPT_START_PAR)
+    fwhm = 2.0 * math.sqrt(2.0 * math.log(2.0))
+    gauss.write_text(
+        f"const = 0.4\nphas1 = 0.3\nfwhm1 = {0.03 * fwhm!r}\nampl1 = 0.35\n"
+        f"phas2 = 0.7\nfwhm2 = {0.08 * fwhm!r}\nampl2 = 0.25\n")
+    runs = []
+    real = spy_on(sampler, "run_ensemble", runs)
+    try:
+        _, secs = run_tool(event_optimize.main, [
+            str(ev), str(par), str(gauss), "--weightcol", "WEIGHT",
+            "--nwalkers", str(OPT_WALKERS), "--nsteps", str(OPT_STEPS),
+            "--seed", "1", "--outfile", str(post), *argdev])
+    finally:
+        sampler.run_ensemble = real
+    progs = runs[0][1]["programs"]
+    f0 = float(get_model(str(post)).params["F0"].value.to_float())
+    out = dict(photons=OPT_PHOTONS, walkers=OPT_WALKERS, steps=OPT_STEPS,
+               acceptance=runs[0][2][2], event_optimize_s=secs,
+               sample_s=runs[0][3],
+               step_ms=runs[0][3] / OPT_STEPS * 1e3,
+               replays=progs.replays, captures=progs.captures,
+               capture_s=progs.capture_s, f0_gap=abs(f0 - OPT_F0))
+    log(f"tools: event_optimize {out}")
+    check(progs.replays == OPT_STEPS and progs.captures == 1,
+          f"event_optimize: {progs.replays} replays and {progs.captures} "
+          f"captures for {OPT_STEPS} steps")
+    check(out["f0_gap"] < 3e-5, f"event_optimize: F0 {out['f0_gap']} off")
+    return out
+
+
+def small_tools(tmp, argdev, topo_par, fitpar):
+    """compare_parfiles, tcb2tdb, t2binary2pint, pintbary and pintpublish
+    once each on small inputs: each exits 0."""
+    from pint_tpu_torch.scripts import (
+        compare_parfiles,
+        pintbary,
+        pintpublish,
+        t2binary2pint,
+        tcb2tdb,
+        zima,
+    )
+
+    t2, small_tim = tmp / "t2.par", tmp / "small.tim"
+    t2.write_text(T2_PAR)
+    run_tool(zima.main, [str(topo_par), str(small_tim), "--ntoa", "2048",
+                         "--startMJD", "54500", "--duration", "1400",
+                         "--obs", "gbt", "--freq", "1400", "800",
+                         "--addnoise", "--seed", "1", *argdev])
+    runs = {
+        "compare_parfiles": (compare_parfiles.main,
+                             [str(topo_par), str(fitpar)]),
+        "tcb2tdb": (tcb2tdb.main, [str(GOLDEN_DIR / "golden23.par"),
+                                   str(tmp / "g23_tdb.par")]),
+        "t2binary2pint": (t2binary2pint.main, [str(t2), str(tmp / "t2o.par")]),
+        "pintbary": (pintbary.main, ["55000.0", "55100.5", "--ra",
+                                     "06:13:43.97", "--dec=-02:00:47.2",
+                                     "--obs", "gbt"]),
+        "pintpublish": (pintpublish.main, [str(topo_par), str(small_tim)]),
+    }
+    out = {name: run_tool(fn, argv + argdev)[1]
+           for name, (fn, argv) in runs.items()}
+    log(f"tools: the small tools exited 0 (host s): {out}")
+    return out
+
+
+def tools_phase(dev):
+    """Phase 15: the command-line tools through their ``main(argv)`` on
+    the card, in the committed data environment."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    argdev = ["--device", str(dev), "--log-level", "WARNING"]
+    out = {}
+    with warnings.catch_warnings(), port_ingest_env(), \
+            tempfile.TemporaryDirectory() as tmp:
+        warnings.simplefilter("ignore")
+        tmp = Path(tmp)
+        out["pintempo"], topo_par, fitpar = zima_pintempo(dev, tmp, argdev)
+        out["photonphase"] = photon_tools(dev, tmp, argdev)
+        out["polycos"] = polyco_tools(dev, tmp)
+        out["event_optimize"] = optimize_tool(dev, tmp, argdev)
+        out["small_tools"] = small_tools(tmp, argdev, topo_par, fitpar)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"tools: phase 15 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2698,6 +3045,11 @@ def main():
     ingest = ingest_phase(dev)
     phase_memory(14)
 
+    # 15. the command-line tools: zima and pintempo, photonphase, polycos,
+    # event_optimize and the small tools
+    tools = tools_phase(dev)
+    phase_memory(15)
+
     # the kernels line: each kernel at the binary MSP's shapes (launches
     # from its fits), and under "bench" the same numbers at bench.py's
     # pulsar (launches from its fits)
@@ -2757,6 +3109,9 @@ def main():
     rows[0]["inference"] = inference
     rows[0]["ingest"] = ingest
     rows[0]["ingest_launches"] = ingest["fit"]["launches"]["fused_gram_joint"]
+    rows[0]["tools"] = tools
+    rows[0]["tools_launches"] = tools["pintempo"]["launches"][
+        "fused_gram_joint"]
     rows[0]["graphs"] = GRAPHS
     rows[0]["memory_after_phase"] = MEMORY
     barred = sorted(m for m in sys.modules

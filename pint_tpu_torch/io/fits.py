@@ -1,9 +1,10 @@
 """Minimal FITS reader/writer for event binary tables.
 
 Counterpart of ``pint_tpu/io/fits.py`` (the astropy.io.fits capability
-PINT uses for event and orbit files), only what the satellite orbit
-tables need: header parsing, BINTABLE column decode (logical/byte/short/
-int/long/float/double/string TFORMs), and writing a binary table.
+PINT uses for event and orbit files), only what event files and
+satellite orbit tables need: header parsing, BINTABLE column decode
+(logical/byte/short/int/long/float/double/string TFORMs), writing a
+binary table, and appending a column (``add_column``).
 
 FITS structure: 2880-byte blocks; headers are 80-char cards; binary
 tables are big-endian packed rows described by TFORMn codes.
@@ -254,3 +255,22 @@ def write_event_fits(path, columns: dict, header_extra: dict = None,
         f.write(theader)
         f.write(tdata)
 
+
+def add_column(path, out_path, name, values, extname=None):
+    """Copy the file with an extra column appended to the (first or
+    named) BINTABLE, keeping its timing keywords (photonphase writes
+    PULSE_PHASE back into the event file this way)."""
+    hdu = get_bintable(path, extname)
+    cols = {n: hdu.column(n) for n in hdu.columns()}
+    cols[name] = np.asarray(values)
+    extra = {
+        k: hdu.header[k]
+        for k in hdu.header
+        if k in (
+            "MJDREFI", "MJDREFF", "MJDREF", "TIMEZERO", "TIMESYS",
+            "TELESCOP", "INSTRUME", "OBS_ID",
+        )
+    }
+    write_event_fits(
+        out_path, cols, header_extra=extra, extname=hdu.name or "EVENTS"
+    )

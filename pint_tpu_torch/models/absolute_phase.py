@@ -32,11 +32,12 @@ BARYCENTRIC_SITES = ("@", "bat", "ssb", "barycenter")
 
 
 class AbsPhase(Component):
+    register = True
     category = "absolute_phase"
 
     def __init__(self):
         super().__init__()
-        self.add_param(MJDParameter("TZRMJD"))
+        self.add_param(MJDParameter("TZRMJD", time_scale="utc"))
         self.add_param(strParameter("TZRSITE", value="@"))
         self.add_param(floatParameter("TZRFRQ", units="MHz"))
 

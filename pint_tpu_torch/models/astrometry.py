@@ -168,6 +168,7 @@ class Astrometry(DelayComponent):
 
 
 class AstrometryEquatorial(Astrometry):
+    register = True
     _ANGLES = ("RAJ", "DECJ")
 
     def __init__(self):
@@ -224,6 +225,7 @@ class AstrometryEcliptic(Astrometry):
     equatorial by the IERS2010 mean obliquity at J2000, as NANOGrav
     models give their positions."""
 
+    register = True
     _ANGLES = ("ELONG", "ELAT")
 
     def __init__(self):

@@ -3,80 +3,61 @@
 Counterpart of ``pint_tpu/models/builder.py::get_model``, with its
 selection rule: a component is included when the par text names a
 parameter (or mask family, or indexed-family member such as DMX_0017)
-that it alone of the ported non-binary components accepts; the binary
-model is chosen by the BINARY line alone; SolarSystemShapiro comes with
-astrometry.  Every component of the reference is ported, the wideband
-DMJUMP (``DMJump``) and DMEFAC/DMEQUAD (``ScaleDmError``) included.  A
-line no component
+that it alone of the registered non-binary components
+(``Component.component_types``) accepts; the binary model is chosen by
+the BINARY line alone; SolarSystemShapiro comes with astrometry.  Every
+component of the reference is ported, the wideband DMJUMP (``DMJump``)
+and DMEFAC/DMEQUAD (``ScaleDmError``) included.  A line no component
 accepts is left out with an ``UnknownParameterWarning`` and kept in
 ``model.unrecognized``, as the reference's builder does.  ``UNITS TCB``
-converts the parameters to TDB (``tcb_conversion.py``).
+converts the parameters to TDB (``tcb_conversion.py``).  Par text read
+before, in the same data environment, comes from the parse cache as a
+clone.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
+import threading
 import warnings
+from collections import OrderedDict
 
+# the component modules, imported so that the registry is filled
+import pint_tpu_torch.models.absolute_phase  # noqa: F401
+import pint_tpu_torch.models.chromatic  # noqa: F401
+import pint_tpu_torch.models.dispersion  # noqa: F401
+import pint_tpu_torch.models.frequency_dependent  # noqa: F401
+import pint_tpu_torch.models.glitch  # noqa: F401
+import pint_tpu_torch.models.ifunc  # noqa: F401
+import pint_tpu_torch.models.jump  # noqa: F401
+import pint_tpu_torch.models.noise  # noqa: F401
+import pint_tpu_torch.models.phase_offset  # noqa: F401
+import pint_tpu_torch.models.piecewise  # noqa: F401
+import pint_tpu_torch.models.solar_wind  # noqa: F401
+import pint_tpu_torch.models.spindown  # noqa: F401
+import pint_tpu_torch.models.troposphere  # noqa: F401
+import pint_tpu_torch.models.wave  # noqa: F401
 from pint_tpu_torch.exceptions import PintTpuError
 from pint_tpu_torch.io.par import parse_parfile
-from pint_tpu_torch.models.absolute_phase import AbsPhase
-from pint_tpu_torch.models.astrometry import (
-    Astrometry,
-    AstrometryEcliptic,
-    AstrometryEquatorial,
-)
-from pint_tpu_torch.models.chromatic import ChromaticCM
-from pint_tpu_torch.models.dispersion import (
-    DispersionDM,
-    DispersionDMX,
-    DMJump,
-)
-from pint_tpu_torch.models.frequency_dependent import FD, FDJump
-from pint_tpu_torch.models.glitch import Glitch
-from pint_tpu_torch.models.ifunc import IFunc
-from pint_tpu_torch.models.jump import PhaseJump
-from pint_tpu_torch.models.noise import (
-    EcorrNoise,
-    PLChromNoise,
-    PLDMNoise,
-    PLRedNoise,
-    ScaleDmError,
-    ScaleToaError,
-)
+from pint_tpu_torch.models.astrometry import Astrometry
+from pint_tpu_torch.models.component import Component
 from pint_tpu_torch.models.parameter import (
     MJDParameter,
     floatParameter,
     strParameter,
 )
-from pint_tpu_torch.models.phase_offset import PhaseOffset
-from pint_tpu_torch.models.piecewise import PiecewiseSpindown
-from pint_tpu_torch.models.pulsar_binary import BINARY_MODELS
+from pint_tpu_torch.models.pulsar_binary import BINARY_MODELS, PulsarBinary
 from pint_tpu_torch.models.solar_system_shapiro import SolarSystemShapiro
-from pint_tpu_torch.models.solar_wind import (
-    SolarWindDispersion,
-    SolarWindDispersionX,
-)
-from pint_tpu_torch.models.spindown import Spindown
 from pint_tpu_torch.models.tcb_conversion import convert_tcb_tdb
 from pint_tpu_torch.models.timing_model import TimingModel
-from pint_tpu_torch.models.troposphere import TroposphereDelay
-from pint_tpu_torch.models.wave import CMWaveX, DMWaveX, Wave, WaveX
 
+#: every registered component (``Component.component_types``), which a
+#: state may name (``convert.state_from_numpy``)
+COMPONENTS = dict(Component.component_types)
 #: the non-binary components the builder chooses among
-SELECTABLE = {
-    cls.__name__: cls
-    for cls in (AbsPhase, AstrometryEcliptic, AstrometryEquatorial,
-                CMWaveX, ChromaticCM, DMJump, DMWaveX, DispersionDM,
-                DispersionDMX, EcorrNoise, FD, FDJump, Glitch, IFunc,
-                PLChromNoise, PLDMNoise, PLRedNoise, PhaseJump, PhaseOffset,
-                PiecewiseSpindown, ScaleDmError, ScaleToaError,
-                SolarSystemShapiro,
-                SolarWindDispersion, SolarWindDispersionX, Spindown,
-                TroposphereDelay, Wave, WaveX)
-}
-#: every component a state may name (``convert.state_from_numpy``)
-COMPONENTS = {**SELECTABLE,
-              **{cls.__name__: cls for cls in BINARY_MODELS.values()}}
+SELECTABLE = {n: cls for n, cls in COMPONENTS.items()
+              if not issubclass(cls, PulsarBinary)}
 
 # par-file lines that are not parameters
 _IGNORE = {"MODE", "EPHVER", "END", "NITS", "IBOOT"}
@@ -156,9 +137,9 @@ def _top_param(name, tokens):
     return p
 
 
-def get_model(par) -> TimingModel:
-    """Par file (path, text or open file) -> validated TimingModel of the
-    ported components."""
+def _build(par) -> TimingModel:
+    """Parse and build: the par text's model, validated, its TZR arrival
+    ingested."""
     pardict = parse_parfile(par)
     units = pardict.get("UNITS", [["TDB"]])[0][0].upper()
     if units not in ("TDB", "TCB"):
@@ -168,7 +149,10 @@ def get_model(par) -> TimingModel:
     counters: dict[tuple[int, str], int] = {}
     unknown = {}
     for name, entries in pardict.items():
-        if name in _IGNORE or name in ("UNITS", "BINARY"):
+        if name in _IGNORE or name == "BINARY":
+            continue
+        if name == "UNITS":
+            model.top_params[name] = _top_param(name, [units])
             continue
         if name in _TOP_STR + _TOP_FLOAT + _TOP_MJD:
             model.top_params[name] = _top_param(name, entries[0])
@@ -202,6 +186,88 @@ def get_model(par) -> TimingModel:
     model.setup()
     model.validate()
     _ingest_tzr_eagerly(model)
+    return model
+
+
+# -- the parse cache of par text ---------------------------------------
+# Identical par TEXT parsed again (a serving population past its records,
+# repeated loads in analysis scripts) hits a content-hash cache: it holds
+# a pristine clone of the built model and the parse's warnings; a hit
+# replays the warnings and returns a fresh clone (parameter state copied,
+# nothing parsed or validated), then ingests the TZR arrival anew under
+# the environment in scope, as a build does.  Only multi-line strings are
+# cached (a path's content can change on disk; a file object is
+# consumed).  The variables of the data environment join the key, since
+# the TZR deferral depends on them.
+_PARSE_CACHE: OrderedDict = OrderedDict()  # guarded by _PARSE_CACHE_LOCK
+_PARSE_CACHE_LOCK = threading.Lock()
+#: the variables the ingest reads its clock files, EOP table, ephemeris
+#: kernels, orbit tables and observatory overrides from
+_PARSE_ENV_KEYS = ("PINT_TPU_CLOCK_DIR", "PINT_TPU_EOP", "PINT_TPU_EPHEM_DIR",
+                   "PINT_TPU_ORBIT_DIR", "PINT_TPU_OBS_OVERRIDE")
+
+
+def _parse_cache_size() -> int:
+    """$PINT_TPU_TORCH_PARSE_CACHE=0 turns the cache off;
+    $PINT_TPU_TORCH_PARSE_CACHE_SIZE bounds it (256 models)."""
+    if os.environ.get("PINT_TPU_TORCH_PARSE_CACHE", "1") == "0":
+        return 0
+    try:
+        return max(0, int(os.environ.get("PINT_TPU_TORCH_PARSE_CACHE_SIZE",
+                                         "256")))
+    except ValueError:
+        return 256
+
+
+def _parse_cache_key(par):
+    if not isinstance(par, str) or "\n" not in par:
+        return None
+    env = tuple(os.environ.get(k, "") for k in _PARSE_ENV_KEYS)
+    return hashlib.sha256(par.encode()).hexdigest(), env
+
+
+def clear_parse_cache() -> None:
+    """Drop every cached parse."""
+    with _PARSE_CACHE_LOCK:
+        _PARSE_CACHE.clear()
+
+
+def get_model(par) -> TimingModel:
+    """Par file (path, text or open file) -> validated TimingModel of the
+    ported components; par text that was parsed before (in the same
+    data environment) comes from the parse cache as a clone."""
+    size = _parse_cache_size()
+    key = _parse_cache_key(par) if size else None
+    if key is not None:
+        with _PARSE_CACHE_LOCK:
+            hit = _PARSE_CACHE.get(key)
+            if hit is not None:
+                _PARSE_CACHE.move_to_end(key)
+        if hit is not None:
+            proto, caught = hit
+            for w in caught:  # the par text's own warnings, replayed
+                warnings.warn_explicit(w.message, w.category, w.filename,
+                                       w.lineno)
+            model = proto.clone()
+            _ingest_tzr_eagerly(model)
+            return model
+    if key is None:
+        return _build(par)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        model = _build(par)
+    kept = []
+    for w in caught:
+        # the deferral is environment state, not par content: a hit
+        # ingests anew and decides it afresh
+        if not issubclass(w.category, TZRDeferredWarning):
+            kept.append(w)
+        warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
+    with _PARSE_CACHE_LOCK:
+        _PARSE_CACHE[key] = (model.clone(), tuple(kept))
+        _PARSE_CACHE.move_to_end(key)
+        while len(_PARSE_CACHE) > size:
+            _PARSE_CACHE.popitem(last=False)
     return model
 
 

@@ -26,7 +26,9 @@ def _cm_deriv(k: int) -> floatParameter:
 
 
 class ChromaticCM(DelayComponent):
+    register = True
     category = "chromatic"
+    prefix_patterns = ("CM",)
 
     def __init__(self, max_terms: int = 6):
         super().__init__()

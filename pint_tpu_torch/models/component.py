@@ -44,9 +44,21 @@ DEFAULT_ORDER = [
 
 
 class Component:
-    """Base: ordered parameter container."""
+    """Base: ordered parameter container with a class registry: every
+    subclass that sets ``register = True`` (or inherits it) is listed in
+    ``Component.component_types`` by class name, which the model builder
+    chooses from."""
 
+    register = False
     category: Optional[str] = None
+    component_types: dict = {}
+    #: indexed parameter families (F#, DMX_####, ...) by prefix
+    prefix_patterns: tuple = ()
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        if cls.__dict__.get("register", cls.register):
+            Component.component_types[cls.__name__] = cls
 
     def __init__(self):
         self.params: dict[str, Parameter] = {}
@@ -54,6 +66,24 @@ class Component:
     def add_param(self, par: Parameter) -> Parameter:
         self.params[par.name] = par
         return par
+
+    def __getattr__(self, name):
+        params = object.__getattribute__(self, "__dict__").get("params", {})
+        if name in params:
+            return params[name]
+        raise AttributeError(
+            f"{type(self).__name__} has no attribute/parameter {name!r}"
+        )
+
+    def has_param(self, name: str) -> bool:
+        return name in self.params
+
+    def match_param_alias(self, name: str) -> Optional[str]:
+        """Resolve an alias to this component's canonical param name."""
+        for p in self.params.values():
+            if p.name_matches(name):
+                return p.name
+        return None
 
     @property
     def free_params(self) -> list[str]:
@@ -107,10 +137,24 @@ class Component:
         """The Parameter this component holds for par name ``name``
         (aliases included), freshly made for an indexed family, or
         None."""
-        for p in self.params.values():
-            if p.name_matches(name):
-                return p
+        canon = self.match_param_alias(name)
+        if canon is not None:
+            return self.params[canon]
         return self.new_prefix_param(name)
+
+    @classmethod
+    def accepted_param_names(cls) -> set[str]:
+        """All par-file names (aliases included, prefix indices not) this
+        component understands."""
+        proto = cls()
+        names = set()
+        for p in proto.params.values():
+            names.add(p.name.upper())
+            names.update(a.upper() for a in p.aliases)
+        for pref in proto.prefix_patterns:
+            names.add(pref.upper() + "#")
+        names.update(k.upper() for k in proto.mask_families())
+        return names
 
     def remove_param(self, name: str):
         self.params.pop(name, None)

@@ -25,7 +25,9 @@ from pint_tpu_torch.toas.bundle import table_mjd
 
 
 class DispersionDM(DelayComponent):
+    register = True
     category = "dispersion_constant"
+    prefix_patterns = ("DM",)
 
     def __init__(self, max_terms: int = 10):
         super().__init__()
@@ -80,7 +82,9 @@ class DispersionDMX(DelayComponent):
     term and equals the reference's bit for bit (the summation order
     differs only where ranges overlap)."""
 
+    register = True
     category = "dispersion_dmx"
+    prefix_patterns = ("DMX_", "DMXR1_", "DMXR2_")
     _FAMILY = ("DMX_", "DMXR1_", "DMXR2_")
     mask_key = "dispersion_dmx:M"
 
@@ -158,6 +162,7 @@ class DMJump(DelayComponent):
     ``dm_offset`` subtracts each selected DMJUMP from the model DM that
     the wideband DM residuals compare with (``CompiledModel.dm_model``)."""
 
+    register = True
     category = "dispersion_jump"
 
     def __init__(self):

@@ -22,7 +22,9 @@ def _log_freq(bundle):
 
 
 class FD(DelayComponent):
+    register = True
     category = "frequency_dependent"
+    prefix_patterns = ("FD",)
 
     def __init__(self, max_terms: int = 9):
         super().__init__()
@@ -52,6 +54,7 @@ class FD(DelayComponent):
 class FDJump(DelayComponent):
     """FDnJUMP mask families: FD-like terms on TOA selections."""
 
+    register = True
     category = "frequency_dependent"
     MAX_ORDER = 4
 

@@ -25,7 +25,9 @@ _FAMS = ("GLEP_", "GLPH_", "GLF0_", "GLF1_", "GLF2_", "GLF0D_", "GLTD_")
 
 
 class Glitch(PhaseComponent):
+    register = True
     category = "glitch"
+    prefix_patterns = _FAMS
 
     def __init__(self):
         super().__init__()

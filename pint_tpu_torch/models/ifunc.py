@@ -23,7 +23,9 @@ from pint_tpu_torch.ops.interp import interp, nearest
 
 
 class IFunc(PhaseComponent):
+    register = True
     category = "ifunc"
+    prefix_patterns = ("IFUNC",)
 
     def __init__(self):
         super().__init__()

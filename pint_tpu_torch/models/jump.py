@@ -37,6 +37,7 @@ class _JumpFamily:
 
 
 class PhaseJump(_JumpFamily, PhaseComponent):
+    register = True
     category = "phase_jump"
 
     def __init__(self):

@@ -41,6 +41,7 @@ class ScaleToaError(NoiseComponent):
     """sigma' = EFAC * sqrt(sigma^2 + EQUAD^2) over mask selections
     (tempo2 convention)."""
 
+    register = True
     category = "scale_toa_error"
 
     def __init__(self):
@@ -102,6 +103,7 @@ class ScaleDmError(NoiseComponent):
     wideband fitters (``CompiledModel.scaled_dm_sigma``), never the TOA
     sigma."""
 
+    register = True
     category = "scale_dm_error"
 
     def __init__(self):
@@ -175,6 +177,7 @@ class EcorrNoise(NoiseComponent):
     """Per-epoch fully correlated white noise (ECORR): basis = the epoch
     quantization matrix U, weight = ECORR^2 per epoch."""
 
+    register = True
     category = "ecorr_noise"
     introduces_correlated_errors = True
 
@@ -320,6 +323,7 @@ class _FourierBasisNoise(NoiseComponent):
 class PLRedNoise(_FourierBasisNoise):
     """Power-law achromatic red noise (TNREDAMP/TNREDGAM/TNREDC)."""
 
+    register = True
     category = "pl_red_noise"
     _AMP, _GAM, _NHARM = "TNREDAMP", "TNREDGAM", "TNREDC"
 
@@ -347,6 +351,7 @@ class PLDMNoise(_FourierBasisNoise):
     """Power-law DM noise (TNDMAMP/TNDMGAM/TNDMC): basis rows scaled by
     (1400 MHz / f)^2, so the amplitudes share the red-noise convention."""
 
+    register = True
     category = "pl_dm_noise"
     _AMP, _GAM, _NHARM = "TNDMAMP", "TNDMGAM", "TNDMC"
 
@@ -366,6 +371,7 @@ class PLChromNoise(_FourierBasisNoise):
     rows scaled by (1400 MHz / f)^CMIDX, the index of ChromaticCM (4
     without it)."""
 
+    register = True
     category = "pl_chrom_noise"
     _AMP, _GAM, _NHARM = "TNCHROMAMP", "TNCHROMGAM", "TNCHROMC"
 

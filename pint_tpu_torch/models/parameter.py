@@ -76,6 +76,9 @@ class Parameter:
     through ``scale_to_internal``, so a value set from exported internal
     state reaches the kernels bit for bit."""
 
+    #: a parameter of a continuous value (``TimingModel.fittable_params``)
+    continuous = True
+
     def __init__(self, name, value=None, units="", aliases=(), frozen=True,
                  uncertainty: Optional[float] = None, scale_to_internal=1.0):
         self.name = name
@@ -267,9 +270,11 @@ class strParameter(Parameter):
 
 
 class MJDParameter(Parameter):
-    """Epoch parameter (PEPOCH, POSEPOCH, DMEPOCH), exact two-part TDB."""
+    """Epoch parameter (PEPOCH, POSEPOCH, DMEPOCH), exact two-part;
+    ``time_scale`` names its scale (TDB but for TZRMJD's UTC)."""
 
-    def __init__(self, name, value=None, **kw):
+    def __init__(self, name, value=None, time_scale="tdb", **kw):
+        self.time_scale = time_scale
         kw.setdefault("units", "MJD")
         super().__init__(name, value=value, **kw)
 
@@ -411,12 +416,13 @@ class maskParameter(floatParameter):
             self.value = 0.0
 
     def select(self, toas) -> np.ndarray:
-        """Boolean mask over a TOA table (host-side).  ``tel`` compares
-        the table's site codes case-insensitively with the key's, as the
-        reference does (an alias such as '1' for gbt is another code);
-        ``name`` reads the ``name`` flag."""
-        from pint_tpu_torch.toas.bundle import table_mjd
+        """Boolean mask over a TOA table or TOAs (host-side).  ``tel``
+        compares the table's site codes case-insensitively with the key's,
+        as the reference does (an alias such as '1' for gbt is another
+        code); ``name`` reads the ``name`` flag."""
+        from pint_tpu_torch.toas.bundle import as_table, table_mjd
 
+        toas = as_table(toas)
         n = len(toas["freq_mhz"])
         if self.key is None:
             return np.ones(n, dtype=bool)

@@ -17,6 +17,7 @@ from pint_tpu_torch.ops.dd import DD
 
 
 class PhaseOffset(PhaseComponent):
+    register = True
     category = "phase_offset"
 
     def __init__(self):

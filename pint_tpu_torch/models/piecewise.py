@@ -28,7 +28,9 @@ _FAMS = ("PWEP_", "PWPH_", "PWF0_", "PWF1_", "PWF2_", "PWSTART_", "PWSTOP_")
 
 
 class PiecewiseSpindown(PhaseComponent):
+    register = True
     category = "piecewise_spindown"
+    prefix_patterns = _FAMS
 
     def __init__(self):
         super().__init__()

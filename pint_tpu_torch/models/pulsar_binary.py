@@ -51,6 +51,7 @@ class PulsarBinary(DelayComponent):
     """Base class: Keplerian and common post-Keplerian parameters."""
 
     category = "pulsar_system"
+    prefix_patterns = ("FB",)
     binary_model_name: str = ""
     epoch_param = "T0"
 
@@ -142,6 +143,7 @@ class PulsarBinary(DelayComponent):
 class BinaryBT(PulsarBinary):
     """Blandford & Teukolsky (1976)."""
 
+    register = True
     binary_model_name = "BT"
 
     def _om(self, pdict, dt_f):
@@ -161,7 +163,9 @@ class BinaryBTPiecewise(BinaryBT):
     XR1_#### <= MJD < XR2_####; the ranges become 0/1 mask columns
     ``BTX_####`` at compile time."""
 
+    register = True
     binary_model_name = "BT_PIECEWISE"
+    prefix_patterns = ("FB", "T0X_", "A1X_", "XR1_", "XR2_")
     _PIECE = ("T0X_", "A1X_", "XR1_", "XR2_")
 
     def __init__(self):
@@ -251,6 +255,7 @@ class BinaryBTPiecewise(BinaryBT):
 class BinaryDD(PulsarBinary):
     """Damour & Deruelle (1986)."""
 
+    register = True
     binary_model_name = "DD"
 
     def __init__(self):
@@ -298,6 +303,7 @@ class BinaryDDH(BinaryDD):
     """DD with the orthometric Shapiro parameters (H3, STIGMA) of Freire
     & Wex 2010: r = H3 / STIGMA^3, s = 2 STIGMA / (1 + STIGMA^2)."""
 
+    register = True
     binary_model_name = "DDH"
 
     def __init__(self):
@@ -328,6 +334,7 @@ class BinaryDDS(BinaryDD):
     """DD with the SHAPMAX form of the Shapiro shape, s = 1 -
     exp(-SHAPMAX)."""
 
+    register = True
     binary_model_name = "DDS"
 
     def __init__(self):
@@ -345,6 +352,7 @@ class BinaryDDGR(BinaryDD):
     """DD with every post-Keplerian parameter fixed by GR from (MTOT,
     M2); XOMDOT and XPBDOT are excesses beyond GR."""
 
+    register = True
     binary_model_name = "DDGR"
 
     def __init__(self):
@@ -400,6 +408,7 @@ class BinaryDDK(BinaryDD):
     adds annual terms scaled by 1/distance (needs PX).  The astrometry
     component is found in ``setup(model)``."""
 
+    register = True
     binary_model_name = "DDK"
 
     def __init__(self):
@@ -466,6 +475,7 @@ class BinaryDDK(BinaryDD):
 class BinaryELL1(PulsarBinary):
     """Lange et al. 2001 small-eccentricity model."""
 
+    register = True
     binary_model_name = "ELL1"
     epoch_param = "TASC"
 
@@ -512,6 +522,7 @@ class BinaryELL1(PulsarBinary):
 class BinaryELL1H(BinaryELL1):
     """ELL1 with the orthometric Shapiro parameters (Freire & Wex 2010)."""
 
+    register = True
     binary_model_name = "ELL1H"
 
     def __init__(self):
@@ -540,6 +551,7 @@ class BinaryELL1H(BinaryELL1):
 class BinaryELL1k(BinaryELL1):
     """ELL1 with an explicit OMDOT and LNEDOT (Susobhanan et al. 2018)."""
 
+    register = True
     binary_model_name = "ELL1K"
 
     def __init__(self):

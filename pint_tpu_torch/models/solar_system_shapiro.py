@@ -33,6 +33,7 @@ _PLANET_GM = {
 
 
 class SolarSystemShapiro(DelayComponent):
+    register = True
     category = "solar_system_shapiro"
 
     def __init__(self):

@@ -72,7 +72,9 @@ def _ne_sw_deriv(k: int) -> floatParameter:
 
 
 class SolarWindDispersion(DelayComponent):
+    register = True
     category = "solar_wind"
+    prefix_patterns = ("NE_SW",)
 
     def __init__(self, max_terms: int = 5):
         super().__init__()
@@ -150,7 +152,9 @@ class SolarWindDispersionX(DelayComponent):
     elongation and 1 AU; the ranges are 0/1 columns ``SWX_####`` built on
     the host at compile time (half-open [SWXR1, SWXR2))."""
 
+    register = True
     category = "solar_wind"
+    prefix_patterns = ("SWXDM_", "SWXR1_", "SWXR2_")
 
     def __init__(self):
         super().__init__()

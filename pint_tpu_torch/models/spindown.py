@@ -14,7 +14,9 @@ from pint_tpu_torch.ops.taylor import taylor_horner_dd, taylor_horner_deriv_dd
 
 
 class Spindown(PhaseComponent):
+    register = True
     category = "spindown"
+    prefix_patterns = ("F",)
 
     def __init__(self, max_fterms: int = 12):
         super().__init__()

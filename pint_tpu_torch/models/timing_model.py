@@ -15,6 +15,7 @@ phase-residual kernel over the spin frequency.
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import numpy as np
@@ -35,6 +36,7 @@ from pint_tpu_torch.ops.dd import DD
 from pint_tpu_torch.ops.phase import Phase
 from pint_tpu_torch.runtime.graphs import ProgramCache
 from pint_tpu_torch.timebase.hostdd import HostDD
+from pint_tpu_torch.timebase.times import TimeArray
 from pint_tpu_torch.toas.bundle import TOABundle, as_table, make_bundle
 
 
@@ -48,8 +50,19 @@ class TimingModel:
         # par lines no component accepted (models/builder.py::get_model)
         self.unrecognized: dict = {}
         for c in components:
-            self.components[type(c).__name__] = c
+            self.add_component(c, setup=False)
         self.setup()
+
+    def add_component(self, comp: Component, setup: bool = True):
+        name = type(comp).__name__
+        if name in self.components:
+            raise TimingModelError(f"duplicate component {name}")
+        self.components[name] = comp
+        if setup:
+            self.setup()
+
+    def remove_component(self, name: str):
+        self.components.pop(name)
 
     def setup(self):
         for c in self._ordered_components():
@@ -90,11 +103,43 @@ class TimingModel:
             out.update(c.params)
         return out
 
+    def __getattr__(self, name):
+        d = object.__getattribute__(self, "__dict__")
+        for c in d.get("components", {}).values():
+            if name in c.params:
+                return c.params[name]
+        if name in d.get("top_params", {}):
+            return d["top_params"][name]
+        raise AttributeError(f"TimingModel has no parameter {name!r}")
+
+    def __getitem__(self, name):
+        p = self.params.get(name)
+        if p is None:
+            raise KeyError(name)
+        return p
+
     @property
     def free_params(self) -> list[str]:
         out = []
         for c in self._ordered_components():
             out.extend(c.free_params)
+        return out
+
+    @property
+    def fittable_params(self) -> list[str]:
+        """Continuous set parameters (epochs included: they fit through
+        a seconds delta, ``CompiledModel._pdict`` and ``commit``)."""
+        out = []
+        for c in self._ordered_components():
+            for n, p in c.params.items():
+                if p.continuous and p.value is not None:
+                    out.append(n)
+        return out
+
+    def free_params_component(self) -> list[tuple[str, Component]]:
+        out = []
+        for c in self._ordered_components():
+            out.extend((n, c) for n in c.free_params)
         return out
 
     def _build_masks(self, toas, noise: bool = True) -> dict:
@@ -177,8 +222,128 @@ class TimingModel:
             lines += [p.as_parfile_line() for p in c.params.values()]
         return "".join(lines)
 
+    # -- one-shot evaluations that compile on ``device`` (None: the CUDA
+    # card); fitters hold a CompiledModel instead of calling these -------
+    def delay(self, toas, device=None) -> np.ndarray:
+        """Total delay (s) at each TOA for the current parameters."""
+        cm = self.compile(toas, device=device)
+        return cm.delay(cm.x0()).cpu().numpy()
+
+    def phase(self, toas, device=None):
+        """(int_cycles, frac) model phase arrays at each TOA."""
+        cm = self.compile(toas, device=device, subtract_mean=False)
+        ph = cm.phase(cm.x0())
+        return ph.int_.cpu().numpy(), ph.frac.cpu().numpy()
+
+    def designmatrix(self, toas, device=None):
+        """(M (n, p) seconds per internal unit, free-parameter names)."""
+        cm = self.compile(toas, device=device)
+        return cm.design_matrix(cm.x0()).cpu().numpy(), list(cm.free_names)
+
+    def d_phase_d_param(self, toas, param: str, device=None) -> np.ndarray:
+        """Phase derivative (cycles per internal unit) for one free
+        parameter: one forward-mode product with a unit tangent, not a
+        full Jacobian."""
+        cm = self.compile(toas, device=device)
+        if param not in cm.free_names:
+            raise TimingModelError(
+                f"{param} is not a free parameter of this model")
+        x = cm.x0()
+        tangent = torch.zeros_like(x)
+        tangent[cm.free_names.index(param)] = 1.0
+        _, col = torch.func.jvp(cm.phase_residuals, (x,), (tangent,))
+        return col.cpu().numpy()
+
+    def clone(self) -> "TimingModel":
+        """An independent copy that shares nothing mutable with this
+        model: fresh component instances with deep-copied Parameters and
+        every other instance attribute deep-copied too (the registries
+        the builder fills outside ``params``, such as
+        ``DispersionDMX.dmx_indices`` and ``EcorrNoise``'s and
+        ``PhaseJump``'s mask families, which a clone that dropped them
+        would silently lose from the noise basis or the design matrix),
+        deep-copied top-level parameters, then ``setup()``.  The ingested
+        TZR arrival memoized on AbsPhase (``_tzr_memo``) is not copied:
+        a later compile of the clone ingests it anew."""
+        comps = []
+        for c in self.components.values():  # in this model's order
+            c2 = type(c)()
+            for k, v in vars(c).items():
+                if k in ("params", "_tzr_memo"):
+                    continue
+                setattr(c2, k, copy.deepcopy(v))
+            c2.params = {n: copy.deepcopy(p) for n, p in c.params.items()}
+            comps.append(c2)
+        m = TimingModel(comps, name=self.name)
+        m.top_params = copy.deepcopy(self.top_params)
+        m.unrecognized = copy.deepcopy(self.unrecognized)
+        m.setup()
+        return m
+
+    def _compare_view(self) -> dict:
+        """name -> repr of the value (None when unset) in the reference's
+        order and spelling: its fixed top-level parameters first (the
+        BINARY line among them), then every component's parameters in
+        evaluation order."""
+        out = {}
+        for name, aliases in _TOP_ORDER:
+            p = next((self.top_params[k] for k in (name, *aliases)
+                      if k in self.top_params), None)
+            if name == "BINARY":
+                v = next((c.binary_model_name
+                          for c in self.components.values()
+                          if getattr(c, "binary_model_name", "")), None)
+                out[name] = None if v is None else repr(v)
+            elif name == "DMDATA" and p is not None:
+                out[name] = repr(float(p.value))  # a float there
+            else:
+                out[name] = None if p is None else _value_repr(p)
+        for c in self._ordered_components():
+            for n, p in c.params.items():
+                out[n] = _value_repr(p)
+        return out
+
+    def compare(self, other: "TimingModel") -> str:
+        """Human-readable parameter comparison (reference:
+        ``TimingModel.compare``): one row a parameter set in either
+        model, '*' where the values differ."""
+        mine, theirs = self._compare_view(), other._compare_view()
+        rows = []
+        for n in list(mine) + [n for n in theirs if n not in mine]:
+            a, b = mine.get(n), theirs.get(n)
+            if a is None and b is None:
+                continue
+            a, b = a or "None", b or "None"
+            mark = "" if a == b else "  *"
+            rows.append(f"{n:<12} {a:>25} {b:>25}{mark}")
+        return "\n".join(rows)
+
     def __repr__(self):
         return f"TimingModel({self.name}, [{', '.join(self.components)}])"
+
+
+#: the reference's top-level parameters in its order, with their aliases
+_TOP_ORDER = (
+    ("PSR", ("PSRJ", "PSRB")), ("EPHEM", ()), ("CLOCK", ("CLK",)),
+    ("UNITS", ()), ("TIMEEPH", ()), ("T2CMETHOD", ()), ("DILATEFREQ", ()),
+    ("START", ()), ("FINISH", ()), ("NTOA", ()), ("TRES", ()),
+    ("INFO", ()), ("BINARY", ()), ("CHI2", ()), ("CHI2R", ()),
+    ("DMDATA", ()),
+)
+
+
+def _value_repr(p: Parameter):
+    """repr of a parameter's value as the reference holds it (None when
+    unset): the value as given, an epoch as a one-element TimeArray."""
+    v = p._par_value()
+    if v is None:
+        return None
+    if isinstance(p, MJDParameter):
+        day, sec = p.internal()
+        v = TimeArray(np.array([day], dtype=np.int64),
+                      HostDD(np.array([sec.hi]), np.array([sec.lo])),
+                      p.time_scale)
+    return repr(v)
 
 
 def reference_values(model: TimingModel) -> dict:

@@ -78,6 +78,7 @@ def _interp_coeffs(table, lat):
 
 
 class TroposphereDelay(DelayComponent):
+    register = True
     category = "troposphere"
 
     def __init__(self):

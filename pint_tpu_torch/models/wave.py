@@ -47,7 +47,9 @@ class Wave(PhaseComponent):
     """WAVE_OM + WAVEn (sin, cos) seconds; a positive amplitude is extra
     delay, so the phase decreases."""
 
+    register = True
     category = "wave"
+    prefix_patterns = ("WAVE",)
 
     def __init__(self):
         super().__init__()
@@ -97,6 +99,10 @@ class WaveXBase(DelayComponent):
         self.add_param(MJDParameter(self.epoch_name))
         self.indices: list[int] = []
 
+    @property
+    def prefix_patterns(self):
+        return self.prefixes
+
     def _add_index(self, idx: int):
         fr, sn, cs = self.prefixes
         self.add_param(floatParameter(f"{fr}{idx:04d}", units="1/d"))
@@ -140,12 +146,14 @@ class WaveXBase(DelayComponent):
 
 
 class WaveX(WaveXBase):
+    register = True
     category = "wave"
 
 
 class DMWaveX(WaveXBase):
     """Amplitudes in pc cm^-3; the delay scales as DM_CONST / f^2."""
 
+    register = True
     category = "dispersion_dmx"
     prefixes = ("DMWXFREQ_", "DMWXSIN_", "DMWXCOS_")
     epoch_name = "DMWXEPOCH"
@@ -157,6 +165,7 @@ class DMWaveX(WaveXBase):
 class CMWaveX(WaveXBase):
     """Chromatic (f^-CMIDX) sinusoids."""
 
+    register = True
     category = "chromatic"
     prefixes = ("CMWXFREQ_", "CMWXSIN_", "CMWXCOS_")
     epoch_name = "CMWXEPOCH"

@@ -17,18 +17,9 @@ from __future__ import annotations
 
 import numpy as np
 
+from pint_tpu_torch.event_toas import _mjdref as mjdref_of  # noqa: F401
 from pint_tpu_torch.exceptions import PintTpuError
 from pint_tpu_torch.observatory import Observatory, register_observatory
-
-
-def mjdref_of(hdr) -> float:
-    """The MET reference MJD of a FITS header (MJDREFI + MJDREFF, or
-    MJDREF)."""
-    if "MJDREFI" in hdr:
-        return float(hdr["MJDREFI"]) + float(hdr.get("MJDREFF", 0.0))
-    if "MJDREF" in hdr:
-        return float(hdr["MJDREF"])
-    raise PintTpuError("event file has no MJDREF/MJDREFI keyword")
 
 
 class SatelliteObs(Observatory):

@@ -58,3 +58,28 @@ class Residuals:
         r = self.time_resids
         w = 1.0 / self.cm.scaled_sigma(self._x).cpu().numpy() ** 2
         return float(np.sqrt(np.sum(w * r * r) / np.sum(w)))
+
+
+class CombinedResiduals:
+    """Residual objects of independent data sets together (reference:
+    residuals.py::CombinedResiduals): the chi2s and degrees of freedom
+    add; each member keeps its own residuals and units."""
+
+    def __init__(self, residual_list):
+        self.residual_objs = list(residual_list)
+
+    @property
+    def chi2(self) -> float:
+        return float(sum(r.chi2 for r in self.residual_objs))
+
+    @property
+    def dof(self) -> int:
+        # a member without a dof raises AttributeError, never adds zero
+        return int(sum(r.dof for r in self.residual_objs))
+
+    @property
+    def reduced_chi2(self) -> float:
+        return self.chi2 / self.dof
+
+    def __len__(self):
+        return sum(len(getattr(r, "toas", [])) for r in self.residual_objs)

@@ -404,22 +404,27 @@ def make_test_pulsar(par: str, ntoa: int = 64, start_mjd: float = 54000.0,
 
 def make_population(par: str, npsr: int, ntoa: int = 64, seed: int = 0,
                     spread: float = 1e-9, **make_test_pulsar_kw):
-    """``npsr`` variants of one composition sharing one simulated TOA
-    set: the base pulsar of :func:`make_test_pulsar`, then copies of its
-    model whose free float and double-double parameters are moved by
+    """``npsr`` par-text variants of one composition sharing one simulated
+    TOA set, so a population pays the host ingest once.
+
+    The base pulsar is :func:`make_test_pulsar`'s (its ingested path,
+    ``obs`` '@' unless given); each further variant is the base's par
+    text with its free float and double-double parameters moved by
     ``spread`` relative draws (absolute for zero values) from
-    ``default_rng(seed + 0x5EED)``; epochs and pair parameters stay.
-    Returns ``(models, toas)``, ``models[0]`` the base model.  The
-    reference returns par texts; writing them is the second half of
-    ROADMAP A11, so the port returns the models."""
+    ``default_rng(seed + 0x5EED)``; epochs and pair parameters stay.  The
+    components, free parameters and masks are the base's, so every
+    variant batches with it.  Returns ``(pars, toas)``: ``pars[0]`` the
+    base model's own par text, ``toas`` the shared ingested TOAs."""
     if npsr < 1:
         raise ValueError(f"make_population needs npsr >= 1, got {npsr}")
+    make_test_pulsar_kw.setdefault("obs", "@")  # the ingested path
     model, toas = make_test_pulsar(par, ntoa=ntoa, seed=seed,
                                    **make_test_pulsar_kw)
+    base = model.as_parfile()
     rng = np.random.default_rng(seed + 0x5EED)
-    models = [model]
+    pars = [base]
     for _ in range(1, npsr):
-        m = get_model(par)
+        m = get_model(base)
         for name in m.free_params:
             p = m.params[name]
             ref = p.internal()
@@ -429,8 +434,8 @@ def make_population(par: str, npsr: int, ntoa: int = 64, seed: int = 0,
             elif isinstance(ref, float):
                 scale = abs(ref) or 1.0
                 p.set_internal(ref + spread * scale * rng.standard_normal())
-        models.append(m)
-    return models, toas
+        pars.append(m.as_parfile())
+    return pars, toas
 
 
 def calculate_random_models(fitter, n_models: int = 100, rng=None):

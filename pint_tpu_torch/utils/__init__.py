@@ -1,7 +1,7 @@
-"""Host-side helpers of the ingest layer: sexagesimal angles, content
-hashes for the ingest cache, and file-or-text opening.
+"""Host-side helpers: sexagesimal angles, weighted statistics, DMX
+summaries, content hashes for the ingest cache, and file-or-text opening.
 
-Counterpart of ``pint_tpu/utils/``, cut to what the port's ingest reads.
+Counterpart of ``pint_tpu/utils/``.
 """
 
 from pint_tpu_torch.utils.angles import (  # noqa: F401
@@ -12,6 +12,10 @@ from pint_tpu_torch.utils.angles import (  # noqa: F401
 )
 from pint_tpu_torch.utils.misc import (  # noqa: F401
     compute_hash,
+    dmx_ranges_from_toas,
+    dmxparse,
     lines_of,
     open_or_use,
+    split_intervals,
+    weighted_mean,
 )

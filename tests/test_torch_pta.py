@@ -247,12 +247,15 @@ def test_reference_values_reach_each_pulsar(pta3):
 
 
 def test_population_batches():
-    """make_population's variants share the base's composition and TOAs,
-    their free values moved by ``spread`` relative: they batch, and each
-    batched residual equals its own model's."""
-    models, toas = make_population(PAR.format(name="P", f0=245.42,
-                                               dm=3.14), 3, ntoa=32,
-                                   spread=1e-9, device="cpu")
+    """make_population's par-text variants share the base's composition
+    and its ingested TOAs, their free values moved by ``spread``
+    relative: they batch, and each batched residual equals its own
+    model's."""
+    pars, toas = make_population(PAR.format(name="P", f0=245.42,
+                                             dm=3.14), 3, ntoa=32,
+                                 spread=1e-9, device="cpu")
+    assert all(isinstance(p, str) for p in pars)
+    models = [get_model(p) for p in pars]
     f0 = [m.params["F0"].internal() for m in models]
     assert len({float(v.hi) + float(v.lo) for v in f0}) == 3
     assert all(abs(float((v - f0[0]).to_float())) <= 1e-7 * 245.42
