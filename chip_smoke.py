@@ -277,6 +277,30 @@ Phases, each of which raises on failure (exit code != 0):
    requests/s, TOAs/s and p50/p99 latency of the steady wave, each
    batch's CUDA-event ms, each program's capture s and
    ``memory_reserved``.
+18. the one-card fleet (``fleet_phase``; its launch predictions in its
+   docstring): a stream (``engine.open_stream``) on bench.py's pulsar at
+   1e5 TOAs opened on all but 832 interior rows, ten 64-row appends each
+   on the incremental rung (the append program captured once, at the
+   first), then within 1e-4 sigma, 1e-4 and 1e-6 of a direct f64
+   ``GLSFitter`` fit of every absorbed row; a corrupted state failing
+   typed in the program and, through the stream, on the warm rung; a
+   refresh (``PINT_TPU_STREAM_REFRESH=1``) on the warm rung; an ECORR
+   stream at 512 TOAs on the warm rung only.  The cross-key fuse: three
+   compositions at 2048-3000 TOAs, two pars each, their fit batches
+   queued behind a stalled dispatch and run as one fused program,
+   bitwise the same batches with fusion off, a steady round building and
+   capturing nothing, a member with a NaN uncertainty failing alone.
+   Jobs at 1e5 TOAs: a 64-walker MCMC of 256 steps in quanta of 16,
+   preempted by an expired interactive deadline, bitwise
+   ``run_ensemble`` of the job's posterior on the card; a 4 x 4 grid
+   within 1e-10 of ``grid_chisq``; repeats capturing nothing.  A kill
+   and restart: engine A (a warm ledger in a temporary directory) serves
+   residuals, fits and a grid job and closes mid-MCMC; engine B, in a
+   process of its own (``restart_child``), replays the ledger before its
+   collector, then the same traffic captures and builds nothing and runs
+   no nvcc, and the killed job resumes bitwise.  Printed: an append's
+   CUDA-event and host ms beside phase 12's eager append, the fused
+   batch's ms, the jobs' s, the replay's s and captures.
 
 Every fit above runs its steps as replays of step programs
 (``runtime/graphs.py``: CUDA graphs captured once, after one eager
@@ -315,7 +339,9 @@ zero launches, under ``ingest`` phase 14's results and the launches of
 its fit, under ``tools`` phase 15's results and under ``tools_launches``
 those of pintempo's fit, under ``runtime`` phase 16's results and under
 ``runtime_launches`` those of its traced fits, under ``serve`` phase
-17's results and under ``serve_launches`` its fit batches' launches),
+17's results and under ``serve_launches`` its fit batches' launches,
+under ``fleet`` phase 18's results and under ``stream_launches``,
+``fused_launches`` and ``restart_launches`` its counted launches),
 nvidia-smi's name and
 power limit, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -3664,6 +3690,625 @@ def serve_phase(dev):
     return out
 
 
+# -- phase 18: the one-card fleet on the card ---------------------------------
+#: the stream: interior rows held out of the open (span-preserving, so the
+#: frozen Fourier anchor is the direct fit's own basis), appended 64 at a
+#: time; 10 appends held to the direct fit, one more under a drift fault
+FLEET_HELD_AT = 50_000
+FLEET_APPEND = 64
+FLEET_NAPPEND = 10
+FLEET_MAXITER = 4  # ObserveSession's default maxiter
+#: the ECORR stream (every append on the warm rung): its TOAs and appends
+FLEET_ECORR = dict(ntoa=512, appends=2, rows=16)
+#: the cross-key fuse: three compositions at 2048-4096 TOAs, two pars
+#: each, fit batches of maxiter SERVE_MAXITER
+FLEET_XKEY_NTOA = (2048, 3000, 2500)
+FLEET_STALL = dict(hang_s=1.5, settle_s=0.3)
+#: the jobs at full width: an MCMC job cut into quanta of 16 steps,
+#: preempted once, and a 4 x 4 grid of F0 and F1
+FLEET_MCMC = dict(nsteps=256, nwalkers=64, seed=11)
+FLEET_QUANTUM = "16"
+FLEET_GRID = 4
+
+
+def _bench_variant(drop=(), extra=""):
+    lines = [ln for ln in BENCH_PAR.strip("\n").splitlines()
+             if not any(ln.startswith(d) for d in drop)]
+    return "\n" + "\n".join(lines) + "\n" + extra
+
+
+def fleet_captures(eng):
+    """Captures of every program the engine built: the replicas' (serve,
+    fused, job programs) and its stream-init programs."""
+    return (sum(r.programs.captures for r in eng.pool.replicas)
+            + eng._stream_programs.captures)
+
+
+def fleet_launches(label, run):
+    """``run()`` with every launch count at 0 just before, read just
+    after (the device synchronized)."""
+    zero_counts()
+    out = run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"fleet: {label} launches {counts}")
+    return out, counts
+
+
+def stream_vs_direct(s, toas, model_par, dev):
+    """The stream's solution against a direct f64 GLSFitter fit of all its
+    rows, at tests/test_serve_stream.py's Fourier gates (deltas 1e-4
+    sigma, uncertainties 1e-4 relative, chi2 1e-6 relative)."""
+    start = get_model(model_par)
+    f = GLSFitter(toas, get_model(model_par), device=dev, fused=False)
+    f.fit_toas(maxiter=FLEET_MAXITER)
+    sig = np.sqrt(np.diag(f.parameter_covariance_matrix))
+    gaps = [abs(dx - internal_delta(f.model.params[n].internal(),
+                                    start.params[n].internal())) / sg
+            for n, dx, sg in zip(s.names, s.deltas, sig)]
+    out = dict(value_gap_sigma=max(gaps),
+               unc_rel=float(np.max(np.abs(s.uncertainties / sig - 1.0))),
+               chi2_rel=abs(s.chi2 - f.chi2) / abs(f.chi2))
+    f.release()
+    return out
+
+
+def fleet_stream(eng, dev, out, model, toas, eager=None):
+    """Step 1: the stream at full width, the fallback rungs, ECORR.
+    ``eager``: phase 12's eager append and solve of 64 rows on bench.py's
+    pulsar at 1e5 TOAs in this run (CUDA-event and host ms), printed
+    beside the served append; None when phase 18 runs alone."""
+    from pint_tpu_torch.exceptions import PintTpuNumericsError
+    from pint_tpu_torch.obs import metrics as obs_metrics
+    from pint_tpu_torch.serve import AppendRequest
+    from pint_tpu_torch.toas.bundle import take_rows
+
+    par = model.as_parfile()
+    nheld = (FLEET_NAPPEND + 3) * FLEET_APPEND
+    held = np.arange(FLEET_HELD_AT, FLEET_HELD_AT + nheld)
+    base = np.setdiff1d(np.arange(NTOA), held)
+    chunks = [take_rows(toas, held[i:i + FLEET_APPEND])
+              for i in range(0, nheld, FLEET_APPEND)]
+    rep = eng.pool.replicas[0]
+
+    t0 = time.perf_counter()
+    s, counts = fleet_launches("stream open", lambda: eng.open_stream(
+        par, take_rows(toas, base), maxiter=FLEET_MAXITER))
+    out["open_s"] = time.perf_counter() - t0
+    out["open_launches"] = counts
+    check(s._state is not None and s._state["sig_L"].shape[0] == 60,
+          "the stream's state (k = 60)")
+
+    caps0 = rep.programs.captures
+    rungs, caps, host_ms = [], [], []
+    zero_counts()
+    for c in chunks[:FLEET_NAPPEND]:
+        t0 = time.perf_counter()
+        r = s.append(c).result(timeout=600)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        rungs.append(r.refit)
+        caps.append(rep.programs.captures - caps0)
+    torch.cuda.synchronize()
+    out["append_launches"] = read_counts()
+    dev_ms = [ms for op, _cap, ms in rep.device_ms if op == "append"]
+    out["appends"] = dict(
+        rungs=rungs, captures_after_each=caps, host_ms=host_ms,
+        device_ms=dev_ms,
+        device_ms_median=(statistics.median(dev_ms[1:])
+                          if len(dev_ms) > 1 else None),
+        host_ms_median=statistics.median(host_ms[1:]),
+        phase12_eager=eager, bucket=r.bucket, ntoa=s.ntoa)
+    log(f"fleet: appends {out['appends']}")
+    check(rungs == ["incremental"] * FLEET_NAPPEND,
+          f"every append on the incremental rung: {rungs}")
+    check(caps[0] == 1 and caps[-1] == 1,
+          f"the append program captured once, at the first append: {caps}")
+    check(not out["append_launches"]["fused_gram_joint"],
+          f"appends launch no Gram kernel: {out['append_launches']}")
+    seen = np.concatenate([base, held[:FLEET_NAPPEND * FLEET_APPEND]])
+    out["vs_direct"] = stream_vs_direct(
+        s, take_rows(toas, np.sort(seen)), par, dev)
+    log(f"fleet: stream vs direct f64 fit {out['vs_direct']}")
+    v = out["vs_direct"]
+    check(v["value_gap_sigma"] <= 1e-4 and v["unc_rel"] <= 1e-4
+          and v["chi2_rel"] <= 1e-6,
+          f"the stream against the direct fit: {v}")
+
+    # the drift guard: a corrupted state fails typed in the program, and
+    # through the stream the append falls back to the warm rung
+    bad = dict(s._state, G=-np.asarray(s._state["G"]))
+    try:
+        eng.submit(AppendRequest(par=par, toas=chunks[FLEET_NAPPEND],
+                                 state=bad, freqs=s._freqs, day0=s._day0,
+                                 ntoa_prev=s.ntoa)
+                   ).result(timeout=600)
+        typed = None
+    except PintTpuNumericsError as e:
+        typed = type(e).__name__
+    fb0 = obs_metrics.counter("serve.stream.drift_fallback").value
+    s._state = bad
+    r = s.append(chunks[FLEET_NAPPEND]).result(timeout=600)
+    out["drift"] = dict(
+        direct_error=typed, rung=r.refit,
+        fallbacks=obs_metrics.counter("serve.stream.drift_fallback").value
+        - fb0)
+    log(f"fleet: drift fault {out['drift']}")
+    check(typed == "PintTpuNumericsError" and r.refit == "warm"
+          and out["drift"]["fallbacks"] == 1,
+          f"the drift guard's fallback: {out['drift']}")
+    s.close()
+
+    # the refresh: PINT_TPU_STREAM_REFRESH=1, so the second append of a
+    # new stream is the warm rung; its refit launches counted
+    os.environ["PINT_TPU_STREAM_REFRESH"] = "1"
+    try:
+        s2 = eng.open_stream(par, take_rows(toas, base),
+                             maxiter=FLEET_MAXITER)
+    finally:
+        del os.environ["PINT_TPU_STREAM_REFRESH"]
+    r1 = s2.append(chunks[FLEET_NAPPEND + 1]).result(timeout=600)
+    r2, counts = fleet_launches("warm refit", lambda: s2.append(
+        chunks[FLEET_NAPPEND + 2]).result(timeout=600))
+    out["refresh"] = dict(rungs=[r1.refit, r2.refit], launches=counts)
+    check([r1.refit, r2.refit] == ["incremental", "warm"],
+          f"the refresh on the warm rung: {out['refresh']}")
+    s2.close()
+
+    # ECORR: no incremental path, every append a warm refit
+    em, et = make_test_pulsar(
+        BENCH_PAR + "ECORR            -f L-wide 0.5\n",
+        ntoa=FLEET_ECORR["ntoa"], device=dev, **SIM_IN_PHASE)
+    n0 = FLEET_ECORR["ntoa"] - FLEET_ECORR["appends"] * FLEET_ECORR["rows"]
+    se = eng.open_stream(em.as_parfile(), take_rows(et, np.arange(n0)))
+    erungs = []
+    for i in range(FLEET_ECORR["appends"]):
+        lo = n0 + i * FLEET_ECORR["rows"]
+        erungs.append(se.append(take_rows(
+            et, np.arange(lo, lo + FLEET_ECORR["rows"]))).result(
+                timeout=600).refit)
+    out["ecorr"] = dict(state=se._state is not None, rungs=erungs)
+    check(se._state is None and erungs == ["warm"] * len(erungs),
+          f"the ECORR stream: {out['ecorr']}")
+    se.close()
+
+
+def fleet_fuse(eng, dev, out):
+    """Step 2: three compositions' fit batches fused in one dispatch."""
+    from pint_tpu_torch.exceptions import PintTpuNumericsError
+    from pint_tpu_torch.obs import metrics as obs_metrics
+    from pint_tpu_torch.runtime import faults
+    from pint_tpu_torch.serve import FitRequest, ResidualsRequest
+    from pint_tpu_torch.simulation import make_population
+
+    comps = [BENCH_PAR, _bench_variant(drop=("TNRED",)),
+             _bench_variant(drop=("TNREDC",), extra="TNREDC           20\n")]
+    groups = []
+    for par, n in zip(comps, FLEET_XKEY_NTOA):
+        pars, t = make_population(par, 2, ntoa=n, spread=SERVE_SPREAD,
+                                  obs=None, device=dev, **SIM_IN_PHASE)
+        groups.append((pars, t))
+    rep = eng.pool.replicas[0]
+
+    def fits(i, toas=None):
+        pars, t = groups[i]
+        return [FitRequest(par=p, toas=t if toas is None else toas,
+                           maxiter=SERVE_MAXITER) for p in pars]
+
+    stall_par, stall_toas = groups[0][0][0], groups[0][1]
+
+    def round_(members):
+        """A stalled residuals batch holds the replica's dispatcher: the
+        injected hang fires twice at its site, once as a kernel spinning
+        on the replica's stream and once on the dispatcher's host thread
+        (the guard's), so the three fit batches queue behind it and the
+        dispatcher finds them together.  -> (results, timing): the
+        round's fit dispatches' CUDA-event ms (each from its first launch
+        to its last; three solo, or one fused) and the host ms from the
+        first member's placement to the last member's resolution (stage
+        stamps), the stall excluded."""
+        rep.device_ms.clear()
+        with faults.inject("hang:2@serve:residuals",
+                           hang_seconds=FLEET_STALL["hang_s"]):
+            stall = eng.submit(ResidualsRequest(par=stall_par,
+                                                toas=stall_toas))
+            time.sleep(FLEET_STALL["settle_s"])
+            futs = [eng.submit_many(m) for m in members]
+            stall.result(timeout=600)
+        out_ = []
+        for fs in futs:
+            res = []
+            for f in fs:
+                try:
+                    res.append(f.result(timeout=600))
+                except PintTpuNumericsError as e:
+                    res.append(e)
+            out_.append(res)
+        stages = [r.stages for res in out_ for r in res
+                  if not isinstance(r, Exception)]
+        dev_ms = [ms for op, _n, ms in rep.device_ms if op != "residuals"]
+        timing = dict(
+            device_ms=dev_ms, device_ms_sum=sum(dev_ms),
+            host_ms=(max(st["finish"] for st in stages)
+                     - min(st["place"] for st in stages)) * 1e3)
+        return out_, timing
+
+    # every solo program built first: the stall's residuals, each
+    # composition's fit batch (capacity 2)
+    serve_wave(eng, [ResidualsRequest(par=stall_par, toas=stall_toas)])
+    for i in range(3):
+        serve_wave(eng, fits(i))
+    members = [fits(i) for i in range(3)]
+    rep._xkey_on = False
+    x0 = obs_metrics.counter("serve.fabric.xkey_fused").value
+    solo, solo_t = round_(members)
+    rep._xkey_on = True
+    check(obs_metrics.counter("serve.fabric.xkey_fused").value == x0,
+          "the fusion-off round fused")
+    caps0 = fleet_captures(eng)
+    first, first_t = round_(members)
+    out["first_round_captures"] = fleet_captures(eng) - caps0
+    x1 = obs_metrics.counter("serve.fabric.xkey_fused").value
+    caps0 = fleet_captures(eng)
+    traces0 = obs_metrics.counter("compile.traces").value
+    (steady, steady_t), counts = fleet_launches(
+        "fused batch", lambda: round_(members))
+    out["rounds"] = dict(solo=solo_t, fused_first=first_t,
+                         fused_steady=steady_t)
+    out["steady"] = dict(
+        captures=fleet_captures(eng) - caps0,
+        builds=obs_metrics.counter("compile.traces").value - traces0,
+        fused=obs_metrics.counter("serve.fabric.xkey_fused").value - x1,
+        launches=counts)
+    out["first_fused"] = x1 - x0
+
+    def same(a, b):
+        return all(np.array_equal(p.deltas, q.deltas)
+                   and np.array_equal(p.uncertainties, q.uncertainties)
+                   and p.chi2 == q.chi2 and p.fitted_par == q.fitted_par
+                   for ra, rb in zip(a, b) for p, q in zip(ra, rb))
+
+    out["bitwise"] = dict(first=same(first, solo), steady=same(steady, solo))
+    log(f"fleet: fuse {out}")
+    check(out["first_fused"] == 2 and out["steady"]["fused"] == 2,
+          f"the three fit batches fused in one dispatch: {out}")
+    check(out["bitwise"]["first"] and out["bitwise"]["steady"],
+          f"fused results bitwise the unfused ones: {out['bitwise']}")
+    check(out["steady"]["captures"] == 0 and out["steady"]["builds"] == 0,
+          f"the steady fused round built or captured: {out['steady']}")
+
+    # one non-finite member: its TOAs carry a NaN uncertainty
+    bad = dict(groups[2][1])
+    bad["error_us"] = np.array(bad["error_us"])
+    bad["error_us"][0] = np.nan
+    caps0 = fleet_captures(eng)
+    nan_round, _ = round_([members[0], members[1], fits(2, toas=bad)])
+    out["nan_member"] = dict(
+        failed=[type(r).__name__ for r in nan_round[2]],
+        others_bitwise=same(nan_round[:2], solo[:2]),
+        captures=fleet_captures(eng) - caps0)
+    log(f"fleet: non-finite member {out['nan_member']}")
+    check(out["nan_member"]["failed"] == ["PintTpuNumericsError"] * 2
+          and out["nan_member"]["others_bitwise"],
+          f"only the non-finite member failed: {out['nan_member']}")
+
+
+def fleet_jobs(eng, dev, out, model, toas):
+    """Step 3: an MCMC job preempted once and resumed, a grid job, and a
+    repeat of each, at 1e5 TOAs."""
+    from pint_tpu_torch.bayesian import default_priors_for
+    from pint_tpu_torch.exceptions import RequestRejected
+    from pint_tpu_torch.obs import metrics as obs_metrics
+    from pint_tpu_torch.sampler import run_ensemble
+    from pint_tpu_torch.serve import ResidualsRequest
+    from pint_tpu_torch.serve.api import JobRequest
+    from pint_tpu_torch.serve.jobs.kernels import job_lnposterior
+
+    par = model.as_parfile()
+    serve_wave(eng, [ResidualsRequest(par=par, toas=toas)])
+    mc = obs_metrics.counter
+    q0, p0 = mc("serve.jobs.quanta").value, mc("serve.jobs.preempted").value
+    t0 = time.perf_counter()
+    fut = eng.submit(JobRequest(par=par, toas=toas, kind="mcmc",
+                                **FLEET_MCMC))
+    deadline = time.monotonic() + 300
+    while (mc("serve.jobs.quanta").value < q0 + 3
+           and time.monotonic() < deadline and not fut.done()):
+        time.sleep(0.01)
+    try:
+        eng.submit(ResidualsRequest(par=par, toas=toas, deadline_s=1e-4)
+                   ).result(timeout=300)
+        shed = None
+    except RequestRejected as e:
+        shed = e.reason
+    job = fut.result(timeout=900)
+    job_s = time.perf_counter() - t0
+    rec, sess, padded, _ = eng._session_for_request(
+        JobRequest(par=par, toas=toas, kind="mcmc"))
+    lnpost = job_lnposterior(sess, padded, rec.refnum, default_priors_for(
+        rec.model, list(sess.cm.free_names)))
+    t0 = time.perf_counter()
+    chain, lnp, acc = run_ensemble(
+        lnpost, np.zeros(sess.cm.nfree), nwalkers=FLEET_MCMC["nwalkers"],
+        nsteps=FLEET_MCMC["nsteps"], seed=FLEET_MCMC["seed"], device=dev)
+    direct_s = time.perf_counter() - t0
+    # the job's posterior against BayesianTiming's on the unpadded TOAs:
+    # the padded rows add one constant to every log-posterior
+    bt = BayesianTiming(model, toas, device=dev)
+    last = torch.as_tensor(job.result["chain"][-1], device=dev)
+    bt_lnp = torch.func.vmap(bt.lnposterior)(last).cpu().numpy()
+    offset = job.result["lnp"][-1] - bt_lnp
+    out["mcmc"] = dict(
+        shed=shed, preemptions=job.preemptions,
+        preempted=mc("serve.jobs.preempted").value - p0,
+        quanta=job.quanta, job_s=job_s, run_ensemble_s=direct_s,
+        bitwise=bool(np.array_equal(job.result["chain"], chain)
+                     and np.array_equal(job.result["lnp"], lnp)),
+        acceptance=(job.result["acceptance"], acc),
+        padding_offset_spread=float(np.ptp(offset)))
+    log(f"fleet: mcmc job {out['mcmc']}")
+    check(shed == "deadline" and job.preemptions >= 1
+          and out["mcmc"]["bitwise"]
+          and out["mcmc"]["padding_offset_spread"] <= 1e-3,
+          f"the preempted MCMC job: {out['mcmc']}")
+
+    f0 = float(model.params["F0"].value)
+    f1 = float(model.params["F1"].value)
+    grid = {"F0": list(f0 + 2e-11 * np.linspace(-1, 1, FLEET_GRID)),
+            "F1": list(f1 + 2e-19 * np.linspace(-1, 1, FLEET_GRID))}
+    t0 = time.perf_counter()
+    g = eng.submit(JobRequest(par=par, toas=toas, kind="grid_chisq",
+                              grid=grid)).result(timeout=900)
+    grid_s = time.perf_counter() - t0
+    direct = np.asarray(grid_chisq(toas, get_model(par), grid, device=dev))
+    out["grid"] = dict(shape=list(g.result["chi2"].shape),
+                       rel=float(np.max(np.abs(g.result["chi2"] / direct
+                                               - 1.0))),
+                       quanta=g.quanta, job_s=grid_s)
+    check(out["grid"]["rel"] <= 1e-10,
+          f"the grid job against grid_chisq: {out['grid']}")
+    caps0 = fleet_captures(eng)
+    g2 = eng.submit(JobRequest(par=par, toas=toas, kind="grid_chisq",
+                               grid=grid)).result(timeout=900)
+    m2 = eng.submit(JobRequest(par=par, toas=toas, kind="mcmc",
+                               nsteps=32, nwalkers=FLEET_MCMC["nwalkers"],
+                               seed=3)).result(timeout=900)
+    out["repeat_captures"] = fleet_captures(eng) - caps0
+    log(f"fleet: grid job {out['grid']}; repeats captured "
+        f"{out['repeat_captures']}")
+    check(out["repeat_captures"] == 0
+          and np.array_equal(g2.result["chi2"], g.result["chi2"])
+          and m2.result["chain"].shape[0] == 32,
+          f"the job repeats: captures {out['repeat_captures']}")
+    out["jobs_stats"] = eng.stats()["jobs"]
+
+
+#: the restart's traffic, as the same requests in both engines
+def restart_traffic(pars, toas):
+    from pint_tpu_torch.serve import FitRequest, ResidualsRequest
+    from pint_tpu_torch.serve.api import JobRequest
+
+    f0 = float(get_model(pars[0]).params["F0"].value)
+    return dict(
+        residuals=[ResidualsRequest(par=p, toas=toas) for p in pars],
+        fits=[FitRequest(par=p, toas=toas, maxiter=SERVE_MAXITER)
+              for p in pars],
+        grid=JobRequest(par=pars[0], toas=toas, kind="grid_chisq",
+                        grid={"F0": [f0 - 1e-11, f0, f0 + 1e-11]}))
+
+
+def restart_mcmc(par, toas, path):
+    from pint_tpu_torch.serve.api import JobRequest
+
+    return JobRequest(par=par, toas=toas, kind="mcmc",
+                      checkpoint_path=path, **FLEET_MCMC)
+
+
+def restart_child(spec_path):
+    """Engine B of phase 18, in a process of its own: boots on the ledger
+    engine A left, replays it (the captures before the collector opens),
+    serves A's traffic and resumes A's interrupted MCMC job.  Prints one
+    JSON line of what it measured."""
+    import pickle
+
+    from pint_tpu_torch.obs import metrics as obs_metrics
+    from pint_tpu_torch.ops import _cuda_build
+    from pint_tpu_torch.serve import TimingEngine
+
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    nvcc = []
+    real_nvcc = _cuda_build._nvcc
+    _cuda_build._nvcc = lambda: nvcc.append(1) or real_nvcc()
+    pars, toas = spec["pars"], spec["toas"]
+    os.environ["PINT_TPU_SERVE_JOBS_QUANTUM"] = FLEET_QUANTUM
+    t0 = time.perf_counter()
+    eng = TimingEngine(warm_ledger=spec["ledger"], max_batch=SERVE_NPAR,
+                       inflight=1, probe_ms=60_000)
+    out = dict(boot_s=time.perf_counter() - t0, replay_s=eng.replay_s,
+               replay_captures=fleet_captures(eng),
+               replayed=eng.stats()["warm"]["replayed"])
+    try:
+        traffic = restart_traffic(pars, toas)
+        caps0 = fleet_captures(eng)
+        traces0 = obs_metrics.counter("compile.traces").value
+        serve_wave(eng, traffic["residuals"])
+        _, counts = fleet_launches("restart fit", lambda: serve_wave(
+            eng, traffic["fits"]))
+        out["fit_launches"] = counts
+        eng.submit(traffic["grid"]).result(timeout=900)
+        resumed = eng.submit(restart_mcmc(pars[0], toas, spec["ckpt"])
+                             ).result(timeout=900)
+        whole = eng.submit(restart_mcmc(pars[0], toas, None)).result(
+            timeout=900)
+        out.update(
+            traffic_captures=fleet_captures(eng) - caps0,
+            traffic_builds=obs_metrics.counter("compile.traces").value
+            - traces0,
+            nvcc=len(nvcc), resumed=resumed.resumed,
+            bitwise=bool(np.array_equal(resumed.result["chain"],
+                                        whole.result["chain"])
+                         and np.array_equal(resumed.result["lnp"],
+                                            whole.result["lnp"])))
+    finally:
+        eng.close(timeout=120)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def fleet_restart(dev, out):
+    """Step 4: kill and restart against a warm ledger."""
+    import pickle
+    import tempfile
+
+    from pint_tpu_torch.exceptions import RequestRejected
+    from pint_tpu_torch.obs import metrics as obs_metrics
+    from pint_tpu_torch.serve import TimingEngine
+    from pint_tpu_torch.simulation import make_population
+
+    pars, toas = make_population(BENCH_PAR, 2, ntoa=NTOA,
+                                 spread=SERVE_SPREAD, obs=None, device=dev,
+                                 **SIM_IN_PHASE)
+    with tempfile.TemporaryDirectory() as tmp:
+        ledger = os.path.join(tmp, "ledger.json")
+        ckpt = os.path.join(tmp, "mcmc.npz")
+        os.environ["PINT_TPU_SERVE_JOBS_QUANTUM"] = FLEET_QUANTUM
+        try:
+            eng = TimingEngine(warm_ledger=ledger, max_batch=SERVE_NPAR,
+                               inflight=1, probe_ms=60_000)
+        finally:
+            del os.environ["PINT_TPU_SERVE_JOBS_QUANTUM"]
+        try:
+            traffic = restart_traffic(pars, toas)
+            serve_wave(eng, traffic["residuals"])
+            serve_wave(eng, traffic["fits"])
+            eng.submit(traffic["grid"]).result(timeout=900)
+            mc = obs_metrics.counter
+            q0 = mc("serve.jobs.quanta").value
+            job = eng.submit(restart_mcmc(pars[0], toas, ckpt))
+            deadline = time.monotonic() + 300
+            while (mc("serve.jobs.quanta").value < q0 + 4
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+        finally:
+            eng.close(timeout=120)
+        try:
+            job.result(timeout=60)
+            closed = "finished"
+        except RequestRejected as e:
+            closed = e.reason
+        with open(ledger) as f:
+            entries = json.load(f)["entries"]
+        out["ledger"] = sorted(
+            f"{e['op']}:{e['params'].get('kind', '')}:{e['caps']}"
+            for e in entries.values())
+        out["killed_job"] = closed
+        check(closed == "shutdown", f"engine A closed mid-job: {closed}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        spec = os.path.join(tmp, "spec.pkl")
+        with open(spec, "wb") as f:
+            pickle.dump(dict(pars=pars, toas=toas, ledger=ledger,
+                             ckpt=ckpt), f)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.restart_child(sys.argv[1]))", spec],
+            capture_output=True, text=True, timeout=600,
+            cwd=str(Path(__file__).resolve().parent))
+        out["child_s"] = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if "launches" in line:
+            log(line)
+    check(proc.returncode == 0,
+          f"engine B failed: {proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["restart"] = child
+    log(f"fleet: restart {child}")
+    check(child["replay_captures"] > 0 and child["traffic_captures"] == 0
+          and child["traffic_builds"] == 0 and child["nvcc"] == 0
+          and child["resumed"] and child["bitwise"],
+          f"the restart: {child}")
+
+
+def fleet_phase(dev, eager=None):
+    """Phase 18: the one-card fleet — a stream's appends on the card, the
+    cross-key fuse, preemptible jobs at full width, and a kill and restart
+    against a warm ledger, every gate raising.
+
+    ``fused_gram_joint`` launches, counted from 0 around each, as the code
+    predicts them (a fit batch is ``maxiter`` replays of its batched step
+    program, ONE launch a replay whatever the capacity, plus one for the
+    warm-up of each capture the batch makes; the white composition's f64
+    step and every streaming, job and residuals path launch none):
+
+    - the stream's open: its cold fit (``maxiter`` 4) is the engine's
+      first fit of that (key, capacity 1), so 4 replays + 1 capture's
+      warm-up = 5; the state init launches nothing;
+    - one warm refit (the refresh rung): the same fit program, captured
+      at the open, 4 replays = 4;
+    - the steady fused batch: the red-noise members (two of the three,
+      capacity 2 each) replay ``SERVE_MAXITER`` = 3 steps each inside the
+      one fused graph, the white member none: 2 x 3 = 6, all batched;
+    - the restart's first fit wave (capacity 2, captured by engine B's
+      boot replay): 3 replays = 3.
+    """
+    from pint_tpu_torch.serve import TimingEngine
+
+    t_phase = time.perf_counter()
+    out = {"stream": {}, "fuse": {}, "jobs": {}}
+    os.environ["PINT_TPU_SERVE_JOBS_QUANTUM"] = FLEET_QUANTUM
+    try:
+        eng = TimingEngine(max_batch=SERVE_NPAR, inflight=4,
+                           max_wait_ms=40.0, probe_ms=60_000,
+                           quarantine_n=100)
+    finally:
+        del os.environ["PINT_TPU_SERVE_JOBS_QUANTUM"]
+    try:
+        t0 = time.perf_counter()
+        model, toas = make_test_pulsar(BENCH_PAR, ntoa=NTOA, device=dev,
+                                       **SIM_IN_PHASE)
+        out["simulate_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fleet_stream(eng, dev, out["stream"], model, toas, eager)
+        out["stream"]["step_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fleet_fuse(eng, dev, out["fuse"])
+        out["fuse"]["step_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fleet_jobs(eng, dev, out["jobs"], model, toas)
+        out["jobs"]["step_s"] = time.perf_counter() - t0
+        out["memory_reserved"] = torch.cuda.memory_reserved()
+        out["stream_stats"] = eng.stats()["stream"]
+    finally:
+        eng.close(timeout=120)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fleet_restart(dev, out)
+    out["restart_step_s"] = time.perf_counter() - t0
+    st, fu = out["stream"], out["fuse"]
+    out["launches"] = dict(
+        stream_open=st["open_launches"]["fused_gram_joint"],
+        warm_refit=st["refresh"]["launches"]["fused_gram_joint"],
+        fused=fu["steady"]["launches"]["fused_gram_joint"],
+        fused_batched=fu["steady"]["launches"]["fused_gram_joint batched"],
+        restart_fit=out["restart"]["fit_launches"]["fused_gram_joint"])
+    predicted = dict(stream_open=FLEET_MAXITER + 1, warm_refit=FLEET_MAXITER,
+                     fused=2 * SERVE_MAXITER,
+                     fused_batched=2 * SERVE_MAXITER,
+                     restart_fit=SERVE_MAXITER)
+    out["launches_predicted"] = predicted
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"fleet: phase 18 {out}")
+    check(out["launches"] == predicted,
+          f"phase 18 launches {out['launches']}, predicted {predicted}")
+    check(out["memory_reserved"] <= MEMORY_LIMIT,
+          f"memory_reserved in phase 18: {out['memory_reserved']}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3908,6 +4553,12 @@ def main():
     serve = serve_phase(dev)
     phase_memory(17)
 
+    # 18. the one-card fleet: a stream's appends, the cross-key fuse,
+    # preemptible jobs, and a kill and restart against a warm ledger
+    fleet = fleet_phase(dev, eager={
+        k: stream["bench"]["times"][k] for k in ("append", "solve")})
+    phase_memory(18)
+
     # the kernels line: each kernel at the binary MSP's shapes (launches
     # from its fits), and under "bench" the same numbers at bench.py's
     # pulsar (launches from its fits)
@@ -3979,6 +4630,12 @@ def main():
         "bench": serve["fit_launches"]["counts"]["fused_gram_joint"],
         "msp": serve["msp_launches"]["counts"]["fused_gram_joint"],
         "msp_wide": serve["msp_launches"]["counts"]["fused_gram_joint wide"]}
+    rows[0]["fleet"] = fleet
+    rows[0]["stream_launches"] = {
+        "open": fleet["launches"]["stream_open"],
+        "warm_refit": fleet["launches"]["warm_refit"]}
+    rows[0]["fused_launches"] = fleet["launches"]["fused"]
+    rows[0]["restart_launches"] = fleet["launches"]["restart_fit"]
     rows[0]["graphs"] = GRAPHS
     rows[0]["memory_after_phase"] = MEMORY
     barred = sorted(m for m in sys.modules

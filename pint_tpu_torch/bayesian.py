@@ -37,6 +37,7 @@ from pint_tpu_torch.models.priors import (
     default_prior,
 )
 from pint_tpu_torch.ops.ffgram import nan_cholesky
+from pint_tpu_torch.runtime.guard import check_deadlines
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -187,6 +188,7 @@ class BayesianTiming:
                     block = np.concatenate(
                         [block, np.repeat(block[-1:], pad, 0)])
                 out.append(prog(self._x(block))[:batch - pad])
+            check_deadlines(wait=True)  # as the grid's host read
             return torch.cat(out).cpu().numpy()
 
         return nested_sample(

@@ -25,6 +25,7 @@ import torch
 from pint_tpu_torch.device import F64
 from pint_tpu_torch.fitting.base import design_with_offset, noffset
 from pint_tpu_torch.fitting.wls import _wls_step
+from pint_tpu_torch.runtime.guard import check_deadlines
 
 #: device bytes a grid point holds at once per TOA and design column: the
 #: f64 jacfwd tangents of the double-double residual chain and the WLS
@@ -137,6 +138,10 @@ def _chi2_points(cm, gidx, pts, refit, n_refit_iter, chunk=None):
             block = np.concatenate([block, np.repeat(block[-1:], pad, 0)])
         out.append(prog(torch.as_tensor(block, device=cm.device))
                    [:chunk - pad])
+    # the grid's one host read: its chunks' deadlines polled first (a
+    # wedged chunk raises GuardTimeout; none stays queued on this thread
+    # holding the program, and its graphs' memory, alive)
+    check_deadlines(wait=True)
     return torch.cat(out).to(F64).cpu().numpy()
 
 

@@ -25,9 +25,13 @@ Quick start::
         fut = engine.submit(FitRequest(par=par_text, toas=toas))
         response = fut.result()             # FitResponse
 
-``TimingEngine(device="cpu", replicas=n)`` serves on the host.  Streams
-(``ObserveSession``), background jobs and the warm ledger are ROADMAP
-A12c.
+``TimingEngine(device="cpu", replicas=n)`` serves on the host.
+``engine.open_stream(par, toas)`` opens an :class:`ObserveSession` (the
+O(append) streaming surface, ``serve/stream.py``);
+``engine.submit(JobRequest(kind="mcmc", ...))`` runs a preemptible
+background job (``serve/jobs/``); ``TimingEngine(warm_ledger=path)``
+keeps the warm surface on disk and replays it at boot
+(``serve/warm_ledger.py``).
 """
 
 from pint_tpu_torch.exceptions import RequestRejected
@@ -48,6 +52,7 @@ from pint_tpu_torch.serve.api import (
 )
 from pint_tpu_torch.serve.engine import TimingEngine
 from pint_tpu_torch.serve.session import SessionCache, shape_bucket
+from pint_tpu_torch.serve.stream import ObserveSession
 
 __all__ = [
     "PRIORITY_HIGH",
@@ -58,6 +63,7 @@ __all__ = [
     "FitRequest",
     "FitResponse",
     "JobRequest",
+    "ObserveSession",
     "PredictRequest",
     "PredictResponse",
     "Request",

@@ -18,9 +18,9 @@ wait; requests still queued past it are shed with a typed
 and a **priority** (lower = flushed first).  Submission is
 ``TimingEngine.submit(request) -> Future`` (``serve/engine.py``).
 
-:class:`JobRequest` and :class:`AppendRequest` (background jobs and
-appends to a stream) are the reference's types; the engine that serves
-them is not ported yet and refuses them (ROADMAP A12c).
+:class:`JobRequest` (a background job, ``serve/jobs/``) and
+:class:`AppendRequest` (an append to a stream, made by
+``serve/stream.py::ObserveSession``) complete the reference's set.
 
 ``toas`` is a port ``TOAs`` (ingested on admission when it is not yet)
 or a host TOA table (``toas/bundle.py``).

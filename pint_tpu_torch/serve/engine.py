@@ -51,9 +51,28 @@ entry point of the port; ``device="cpu"`` serves on the host with
 8-device mesh).  Knobs with ``PINT_TPU_SERVE_*`` env defaults, as the
 reference reads them: MAX_QUEUE, MAX_BATCH, MAX_WAIT_MS, INFLIGHT,
 SESSIONS, PARS, MIN_BUCKET, REPLICAS, AFFINITY, QUARANTINE_N, PROBE_MS,
-QUOTA, SLO_CLOSE, COALESCE, OVERLAP.  Streams, background
-jobs, gangs, the elastic repartitioner and the warm ledger are ROADMAP
-A12c: their requests and arguments are refused.
+QUOTA, SLO_CLOSE, COALESCE, OVERLAP, XKEY_FUSE, XKEY_THRESHOLD,
+XKEY_MAX, STREAMS, WARM_LEDGER (and the job scheduler's JOBS_*).
+
+The fleet's one-card half:
+
+- **streams** — ``open_stream`` returns an
+  :class:`~pint_tpu_torch.serve.stream.ObserveSession` whose appends are
+  ``AppendRequest`` batches on the fabric (the O(append) program), its
+  continuations on the engine's stream executor, off the fence threads;
+  at most ``PINT_TPU_SERVE_STREAMS`` are open;
+- **background jobs** — a ``JobRequest`` bypasses the interactive queue
+  into the preemptible :class:`~pint_tpu_torch.serve.jobs.JobScheduler`;
+- **warm restarts** — with ``warm_ledger=`` (or
+  ``PINT_TPU_SERVE_WARM_LEDGER``) every program the fabric builds is
+  recorded (``serve/warm_ledger.py``), and a restarted engine REPLAYS the
+  ledger before its collector starts: sessions rebuild from their
+  sidecars and every ledgered (key, capacity) is built and captured, so
+  the same traffic afterwards builds and captures nothing.
+
+Gang executors (``gangs=``, ``gang_size=``, ``gang_threshold=``) and the
+elastic repartitioner (``elastic=``) need several cards and come with
+ROADMAP A12d; they are refused.
 """
 
 from __future__ import annotations
@@ -72,6 +91,7 @@ from pint_tpu_torch.fitting.base import noffset
 from pint_tpu_torch.obs import metrics as obs_metrics
 from pint_tpu_torch.obs.trace import TRACER
 from pint_tpu_torch.runtime import lockwitness
+from pint_tpu_torch.runtime.graphs import ProgramCache
 from pint_tpu_torch.runtime.guard import validate_finite
 from pint_tpu_torch.serve import batcher as bmod
 from pint_tpu_torch.serve import session as smod
@@ -80,7 +100,7 @@ from pint_tpu_torch.serve.fabric import BatchWork, ReplicaPool, Router
 
 def _not_ported(what: str) -> PintTpuError:
     return PintTpuError(
-        f"{what} is not ported to pint_tpu_torch yet (ROADMAP A12c)"
+        f"{what} is not ported to pint_tpu_torch yet (ROADMAP A12d)"
     )
 
 
@@ -114,12 +134,14 @@ class TimingEngine:
                  max_sessions=None, replicas=None, affinity=None,
                  quarantine_n=None, probe_ms=None, gangs=None,
                  gang_size=None, gang_threshold=None, quota=None,
-                 slo_close_ms=None, warm_ledger=None, elastic=None):
+                 slo_close_ms=None, warm_ledger=None, prewarm=True,
+                 elastic=None):
+        from pint_tpu_torch.serve import warm_ledger as wlmod
+        from pint_tpu_torch.serve.jobs import JobScheduler
+
         if gangs or gang_size or gang_threshold is not None:
             raise _not_ported(
                 "gang executors (gangs=, gang_size=, gang_threshold=)")
-        if warm_ledger is not None:
-            raise _not_ported("the warm-restart ledger (warm_ledger=)")
         if elastic:
             raise _not_ported("the elastic repartitioner (elastic=)")
         self.device = resolve_device(device)
@@ -142,6 +164,19 @@ class TimingEngine:
             else env("PINT_TPU_SERVE_INFLIGHT", "4")
         )
         self.min_bucket = min_bucket
+        # streaming sessions: a bounded count of long-lived
+        # ObserveSessions; past the cap open_stream sheds typed
+        self.max_streams = int(env("PINT_TPU_SERVE_STREAMS", "64"))
+        self._streams: set = set()
+        self._streams_lock = lockwitness.wrap(
+            threading.Lock(), "TimingEngine._streams_lock"
+        )
+        # the stream continuation executor (lazy): commit and fallback
+        # work runs OFF the replica fence threads
+        self._stream_exec = None
+        # the streams' state-init programs, per (composition, bucket)
+        self._stream_programs = ProgramCache(self.device)
+        self._stream_kernels: dict = {}
         # per-composition in-flight admission quota: 0/unset = unlimited
         self.quota = int(
             quota if quota is not None
@@ -173,8 +208,16 @@ class TimingEngine:
         self._finish_lock = lockwitness.wrap(
             threading.Lock(), "TimingEngine._finish_lock"
         )
+        # the warm-restart ledger: made BEFORE the pool, whose replay
+        # hook resolves works from it
+        self._ledger = None
+        path = wlmod.ledger_path(warm_ledger)
+        if path is not None:
+            self._ledger = wlmod.WarmLedger(path)
+            wlmod.register(self._ledger)
         self.pool = ReplicaPool(
             device=self.device,
+            replayer=self._replay_jobs,
             replicas=replicas,
             inflight=max(1, self.inflight),
             quarantine_n=quarantine_n,
@@ -212,6 +255,24 @@ class TimingEngine:
         self._m_depth = m.gauge("serve.queue_depth")
         self._m_quota = m.counter("serve.quota_rejected")
         self._m_slo_close = m.counter("serve.slo.early_close")
+        # the background compute class: built before the warm replay so
+        # ledgered job programs prewarm through the scheduler's own cache
+        self._jobs = JobScheduler(self)
+        # the warm ledger's boot REPLAY, before the collector exists (the
+        # replicas have been routed no work yet: prewarm_kernel's
+        # contract)
+        self.replay_s = None
+        if self._ledger is not None and prewarm:
+            t0 = time.perf_counter()
+            with TRACER.span("serve:warm-replay", "serve", path=path):
+                works = self._replay_jobs(include_jobs=True)
+                interactive = [w for w, _ in works if w.key[0] != "job"]
+                background = [wp for wp in works if wp[0].key[0] == "job"]
+                if interactive:
+                    self.pool.prewarm(interactive)
+                if background:
+                    self._jobs.prewarm(background)
+            self.replay_s = time.perf_counter() - t0
         self._collector = threading.Thread(
             target=self._collect_loop, daemon=True,
             name="pint-tpu-serve collector",
@@ -231,10 +292,10 @@ class TimingEngine:
             "serve:submit", "serve", op=request.op,
             request_id=request.request_id, flow=request.request_id,
         ):
-            if request.op in ("job", "append"):
-                fut.set_exception(_not_ported(
-                    "serving background jobs and stream appends"))
-                return fut
+            if request.op == "job":
+                # background compute class: jobs bypass the interactive
+                # queue and batcher into the preemptible JobScheduler
+                return self._jobs.submit(request, fut)
             with self._cond:
                 if self._stop:
                     fut.set_exception(RequestRejected(
@@ -267,8 +328,79 @@ class TimingEngine:
         return [self.submit(r) for r in requests]
 
     def open_stream(self, par, toas, **kwargs):
-        """Long-lived streaming sessions: ROADMAP A12c."""
-        raise _not_ported("TimingEngine.open_stream")
+        """Open a long-lived streaming session: a cold fit and a solver
+        state build over ``toas``, returning an
+        :class:`~pint_tpu_torch.serve.stream.ObserveSession` whose
+        ``append(tail)`` absorbs newly observed TOAs at O(append) cost
+        through the replica fabric.  Blocking (the cold fit is O(n));
+        bounded by ``PINT_TPU_SERVE_STREAMS`` — past the cap it sheds
+        typed ``RequestRejected('streams')``."""
+        from pint_tpu_torch.serve.stream import ObserveSession
+
+        with self._streams_lock:
+            if len(self._streams) >= self.max_streams:
+                self._m_rejected.inc()
+                TRACER.event(
+                    "shed", "serve", reason="streams",
+                    open=len(self._streams),
+                )
+                raise RequestRejected(
+                    "streams",
+                    f"{len(self._streams)} streams open >= "
+                    f"PINT_TPU_SERVE_STREAMS={self.max_streams}",
+                )
+        s = ObserveSession(self, par, toas, **kwargs)
+        with self._streams_lock:
+            self._streams.add(s)
+            n = len(self._streams)
+        obs_metrics.gauge("serve.streams.open").set(n)
+        return s
+
+    def _close_stream(self, s):
+        with self._streams_lock:
+            self._streams.discard(s)
+            n = len(self._streams)
+        obs_metrics.gauge("serve.streams.open").set(n)
+
+    def _stream_executor(self):
+        """The lazily made executor of stream continuations (commit and
+        fallback work), OFF the replica fence threads, where they would
+        run inside the serialized finisher and stall co-batched
+        members."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        with self._streams_lock:
+            if self._stream_exec is None:
+                self._stream_exec = ThreadPoolExecutor(
+                    max_workers=2,
+                    thread_name_prefix="pint-tpu-stream",
+                )
+            return self._stream_exec
+
+    def _stream_init(self, sess, ops):
+        """Run a stream's state-init program (``serve/session.py::
+        build_stream_init_kernel``) for ``sess`` on ``ops``, built once
+        per (composition, bucket) in the engine's stream program cache;
+        -> the state as host numpy."""
+        key = ("stream-init", sess.composition, sess.bucket)
+        k = self._stream_kernels.get(key)
+        if k is None:
+            inner = smod.build_stream_init_kernel(
+                sess, ops, self._stream_programs, key,
+                f"serve:stream-init:b{sess.bucket}",
+            )
+            k = self._stream_kernels[key] = smod.serialized(
+                inner, sess.trace_lock, self.device.type == "cuda")
+
+        def launch():
+            import torch
+
+            leaves = [torch.as_tensor(np.ascontiguousarray(a),
+                                      device=self.device)
+                      for a in bmod.tree_leaves(ops)]
+            return k(*leaves)
+
+        return smod.run_fenced(launch, self.device)
 
     # -- stage 2: collector ------------------------------------------------
     def _collect_loop(self):
@@ -351,6 +483,22 @@ class TimingEngine:
                 key = (
                     "residuals", sess.composition, sess.bucket,
                     bool(req.subtract_mean),
+                )
+            elif req.op == "append":
+                # O(append) streaming: the session and bucket are the
+                # TAIL's — the absorbed prefix lives in the request's
+                # solver state, so appending to a 1e6-TOA stream batches
+                # through the same small-bucket program as any other
+                # stream of the composition
+                if smod.stream_fast_path(sess.cm) is None:
+                    raise PintTpuError(
+                        "composition has no incremental streaming path "
+                        "(quantized/chromatic correlated basis); "
+                        "ObserveSession serves such appends through the "
+                        "warm refit rung"
+                    )
+                key = (
+                    "append", sess.composition, sess.bucket, sess.mode,
                 )
             else:
                 raise PintTpuError(f"unknown serve op {req.op!r}")
@@ -529,17 +677,31 @@ class TimingEngine:
                 + [live[0].record.refnum] * pad
             bstack = bmod.stack_trees(bundles)
             rstack = bmod.stack_trees(refs)
-            xs = np.zeros((cap, sess.cm.nfree))
-            if key[0] == "fit":
-                # warm starts: x0 rides as an input of the fit program
-                for j, p in enumerate(live):
-                    if p.req.x0 is not None:
-                        xs[j] = np.asarray(p.req.x0, np.float64)
+            if key[0] == "append":
+                # the third stacked operand is each stream's solver state,
+                # frozen basis anchor and live tail count; pad slots
+                # repeat live[0]'s row (their outputs are dropped)
+                from pint_tpu_torch.serve.stream import append_aux
+
+                auxs = [append_aux(p) for p in live]
+                xs = bmod.stack_trees(auxs + [auxs[0]] * pad)
+            else:
+                xs = np.zeros((cap, sess.cm.nfree))
+                if key[0] == "fit":
+                    # warm starts: x0 rides as an input of the fit program
+                    for j, p in enumerate(live):
+                        if p.req.x0 is not None:
+                            xs[j] = np.asarray(p.req.x0, np.float64)
         self._m_stack_pars.observe(distinct)
         obs_metrics.counter(
             f"serve.composition.{sess.cid}.batches"
         ).inc()
-        return BatchWork(key, live, (bstack, rstack, xs), sess, cap)
+        work = BatchWork(key, live, (bstack, rstack, xs), sess, cap)
+        if key[0] == "append":
+            # append groups never cross-key fuse: one stream's state chain
+            # stays its own batch
+            work.no_fuse = True
+        return work
 
     def _dispatch(self, work: BatchWork):
         """Route one assembled batch (backpressure: when the routed
@@ -602,6 +764,18 @@ class TimingEngine:
                 {"residuals": resid, "chi2": chi2}, site=site,
                 what="served batch (residuals)",
             )
+        elif work.key[0] == "append":
+            # STATE leaves only: the in-program drift guard rolls a failed
+            # row's state back to its finite pre-append input, so a
+            # non-finite state here means a sick replica (an injected or
+            # device fault), not drift — drift stays a per-row NaN in
+            # dx/chi2, refused in _response so ONLY that stream's future
+            # fails over to the warm refit rung
+            st, _dx, _covn, _nrm, _chi2 = mats
+            validate_finite(
+                {f"state.{k}": v for k, v in st.items()}, site=site,
+                what="served batch (append state)",
+            )
         else:
             x, chi2, _cov, _conv, _nbads, _bads = mats
             validate_finite(
@@ -654,6 +828,36 @@ class TimingEngine:
                 residuals_s=resid[i][:ntoa], chi2=float(chi2[i]),
                 bucket=sess.bucket, batch_size=nlive, wall_ms=wall_ms,
                 replica=rtag, stages=stages,
+            )
+        if key[0] == "append":
+            from pint_tpu_torch.serve.api import AppendResponse
+
+            st, dx, covn, nrm, chi2 = mats
+            # the per-row drift refusal: the in-program guard NaN-poisons
+            # dx/chi2 (the state already rolled back) — refused HERE so
+            # the stream's fallback chain re-serves by a warm refit
+            validate_finite(
+                {"dx": np.asarray(dx[i]), "chi2": chi2[i]}, site=site,
+                what="served append (drift check poisoned the "
+                     "incremental solve)",
+            )
+            no = noffset(sess.cm)
+            cov = (
+                np.asarray(covn[i])
+                / np.outer(np.asarray(nrm[i]), np.asarray(nrm[i]))
+            )[no:, no:]
+            state_i = {k: np.asarray(v[i]) for k, v in st.items()}
+            return AppendResponse(
+                request_id=req.request_id,
+                ntoa=int(req.ntoa_prev) + ntoa, appended=ntoa,
+                names=tuple(sess.cm.free_names),
+                deltas=state_i["x"],
+                uncertainties=np.sqrt(np.diag(cov)),
+                chi2=float(chi2[i]), converged=True,
+                refit="incremental", alerts=(),
+                bucket=sess.bucket, batch_size=nlive,
+                wall_ms=wall_ms, replica=rtag, stages=stages,
+                state=state_i,
             )
         # fit: the batched scan result
         x, chi2, (covn, nrm), conv, _nbads, bads = mats
@@ -708,6 +912,23 @@ class TimingEngine:
             self._m_exemplars.offer(
                 lat_ms, p.req.request_id, stages, now=t
             )
+
+    def _replay_jobs(self, include_jobs: bool = False) -> list:
+        """The warm ledger resolved into pre-warm works ([] with no
+        ledger): the boot replay draws from here, and the pool keeps it
+        as its replay hook.  Background-job programs (key[0] == 'job')
+        are left out unless ``include_jobs``: the job scheduler owns
+        those (``JobScheduler.prewarm``)."""
+        from pint_tpu_torch.serve import warm_ledger as wlmod
+
+        if self._ledger is None:
+            return []
+        works = wlmod.replay_jobs(
+            self._ledger, self.sessions, self.max_batch
+        )
+        if not include_jobs:
+            works = [w for w in works if w[0].key[0] != "job"]
+        return works
 
     # -- stats / lifecycle -------------------------------------------------
     def stats(self) -> dict:
@@ -792,6 +1013,32 @@ class TimingEngine:
                 "late_sheds": mc("serve.shed.late").value,
                 "quota_rejected": mc("serve.quota_rejected").value,
             },
+            # the warm-restart ledger's record and replay accounting
+            "warm": {
+                "recorded": mc("serve.warm.recorded").value,
+                "replayed": mc("serve.warm.replayed").value,
+                "failed": mc("serve.warm.failed").value,
+                "stale": mc("serve.warm.stale").value,
+                "replay_s": self.replay_s,
+            },
+            # O(append) streaming: which fallback rung served each tail
+            "stream": {
+                "open": len(self._streams),
+                "appends": mc("serve.stream.appends").value,
+                "incremental": mc("serve.stream.incremental").value,
+                "warm_refits": mc("serve.stream.warm_refit").value,
+                "cold_refits": mc("serve.stream.cold_refit").value,
+                "refreshes": mc("serve.stream.refresh").value,
+                "alerts": mc("serve.stream.alerts").value,
+                "drift_fallbacks": mc(
+                    "serve.stream.drift_fallback"
+                ).value,
+                "cold_fallbacks": mc(
+                    "serve.stream.cold_fallback"
+                ).value,
+            },
+            # the background compute class
+            "jobs": self._jobs.stats(),
         }
 
     def reset_stats(self):
@@ -806,11 +1053,24 @@ class TimingEngine:
         (deadlines still honored), the collector joins, then the replica
         pool drains — in-flight batches fence and queued work completes
         or sheds as typed RequestRejected('shutdown')."""
+        from pint_tpu_torch.serve import warm_ledger as wlmod
+
         with self._cond:
             self._stop = True
             self._cond.notify_all()
         self._collector.join(timeout)
+        # the job scheduler stops BEFORE the pool drains: running jobs
+        # checkpoint and shed typed, so no quantum is in flight while the
+        # replicas drain
+        self._jobs.stop()
         self.pool.drain(timeout)
+        with self._streams_lock:
+            exc, self._stream_exec = self._stream_exec, None
+        if exc is not None:
+            exc.shutdown(wait=True)
+        if self._ledger is not None:
+            wlmod.unregister(self._ledger)
+            self._ledger = None
 
     def __enter__(self):
         return self

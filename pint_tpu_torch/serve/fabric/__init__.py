@@ -17,13 +17,17 @@ global dispatch loop:
   canary prober that re-admits quarantined replicas, and graceful
   drain-on-shutdown.
 
-The reference's gang executors, cross-key fusion and elastic
-repartitioner, and the router's parts that serve them, are ROADMAP A12c.
+Cross-key fusion (``Replica._fuse``, ``FusedBatch``) widens a dispatch
+across the small groups queued on one replica.  The reference's gang
+executors and elastic repartitioner, and the router's parts that serve
+them, need several cards and are ROADMAP A12d.
 
 Env knobs: ``PINT_TPU_SERVE_REPLICAS``, ``PINT_TPU_SERVE_AFFINITY`` (max
 replicas per session group; 0 = pool width),
 ``PINT_TPU_SERVE_QUARANTINE_N``, ``PINT_TPU_SERVE_PROBE_MS``,
-``PINT_TPU_SERVE_COALESCE`` and ``PINT_TPU_SERVE_OVERLAP``, read as the
+``PINT_TPU_SERVE_COALESCE``, ``PINT_TPU_SERVE_OVERLAP``,
+``PINT_TPU_SERVE_XKEY_FUSE`` / ``_XKEY_THRESHOLD`` / ``_XKEY_MAX``
+(cross-key fusion: on / 4096-TOA bucket cutoff / 4 members), read as the
 reference reads them.
 """
 
@@ -34,6 +38,7 @@ from pint_tpu_torch.serve.fabric.replica import (
     LIVE,
     QUARANTINED,
     BatchWork,
+    FusedBatch,
     Replica,
     health_kind,
     merge_batch_works,
@@ -44,6 +49,7 @@ __all__ = [
     "BatchWork",
     "DEGRADED",
     "DRAINED",
+    "FusedBatch",
     "LIVE",
     "QUARANTINED",
     "Replica",

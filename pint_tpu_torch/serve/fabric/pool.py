@@ -7,9 +7,10 @@ reference's ``parallel/mesh.py::serving_devices``) into one
 background probe loop that re-admits quarantined replicas once their
 canary launch answers sanely, and owns the drain-on-shutdown contract:
 in-flight batches fence, queued requests complete or shed as typed
-``RequestRejected(reason='shutdown')`` — never hang.  Online
-repartition (``repartition``, the reference's elastic fabric) is ROADMAP
-A12c.
+``RequestRejected(reason='shutdown')`` — never hang.  The engine hands
+the pool its warm-ledger replay hook (``replayer``); online repartition
+(``repartition``, the reference's elastic fabric, the hook's consumer
+there) is ROADMAP A12d.
 
 Env knobs (constructor kwargs override):
 
@@ -66,7 +67,8 @@ class ReplicaPool:
     def __init__(self, *, device, replicas: int | None = None,
                  inflight: int, quarantine_n: int | None = None,
                  probe_interval_s: float | None = None,
-                 requeue=None, finisher=None, validator=None):
+                 requeue=None, finisher=None, validator=None,
+                 replayer=None):
         env = os.environ.get
         if replicas is None:
             replicas = int(env("PINT_TPU_SERVE_REPLICAS", "0"))
@@ -77,6 +79,9 @@ class ReplicaPool:
                 float(env("PINT_TPU_SERVE_PROBE_MS", "500")) / 1e3
             )
         self.probe_interval_s = max(0.01, float(probe_interval_s))
+        # the warm ledger's job source (the engine's replay closure):
+        # prewarm work for replicas that join after the boot
+        self._replayer = replayer
         self.replicas = [
             Replica(rid, d, tag=f"r{rid}", inflight=inflight,
                     quarantine_n=quarantine_n, requeue=requeue,

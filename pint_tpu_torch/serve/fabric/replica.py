@@ -41,8 +41,21 @@ never builds or captures (``replica:coalesce`` span,
 disables it).  Transfer overlap: the next batch's operands go to the
 device BEFORE the inflight semaphore, while earlier batches still compute
 (``replica:place`` span, ``serve.fabric.overlapped``;
-``PINT_TPU_SERVE_OVERLAP=0`` places after acquiring).  The reference's
-cross-key fusion is not ported yet (ROADMAP A12c).
+``PINT_TPU_SERVE_OVERLAP=0`` places after acquiring).
+
+Cross-key fusion: where the coalescer deepens ONE key's batch, the fuser
+widens across keys — up to ``PINT_TPU_SERVE_XKEY_MAX`` co-resident queued
+batches of DISTINCT (key, capacity) identities, every bucket at or below
+``PINT_TPU_SERVE_XKEY_THRESHOLD``, dispatch as ONE program that runs the
+members' bodies in turn (``serve/session.py::build_fused_kernel``; on the
+card one captured graph), cached under the sorted member-identity combo.
+A fusion lands only when the combo program is already built OR every
+member's solo program is, so a steady state never builds; results
+de-multiplex per member, bitwise those of separate dispatches.  A member
+that fails its fence is marked ``no_fuse`` and re-routed solo; the others
+resolve.  ``replica:xkey-fuse`` span, ``serve.fabric.xkey_fused`` counter,
+``serve.fabric.xkey_members`` histogram; ``PINT_TPU_SERVE_XKEY_FUSE=0``
+disables it.
 
 On the card (what the port adds to the reference's executor):
 
@@ -145,7 +158,7 @@ class BatchWork:
     stages at resolution."""
 
     __slots__ = ("key", "live", "ops", "session", "cap", "excluded",
-                 "last_error", "stamps", "flow")
+                 "last_error", "stamps", "flow", "no_fuse")
 
     def __init__(self, key, live, ops, session, cap):
         self.key = key
@@ -157,6 +170,8 @@ class BatchWork:
         self.last_error: BaseException | None = None
         self.stamps: dict = {}  # stage name -> time.monotonic()
         self.flow = f"batch-{next(_BATCH_IDS)}"
+        # a fused dispatch of this batch failed: it retries solo only
+        self.no_fuse = False
 
     def stamp(self, name: str):
         """Record one stage boundary.  Re-routes re-stamp earlier stages
@@ -192,6 +207,10 @@ class BatchWork:
             return smod.build_fit_kernel(
                 self.session, mode, maxiter, tol, self.ops, programs,
                 self.kernel_key(), site,
+            )
+        if self.key[0] == "append":
+            return smod.build_append_kernel(
+                self.session, self.ops, programs, self.kernel_key(), site,
             )
         return smod.build_residuals_kernel(
             self.session, self.key[3], self.ops, programs,
@@ -278,8 +297,22 @@ def merge_batch_works(works: list[BatchWork], cap: int) -> BatchWork:
         w.flush_stages()
     merged = BatchWork(works[0].key, live, ops, works[0].session, cap)
     merged.excluded = set().union(*(w.excluded for w in works))
+    merged.no_fuse = any(w.no_fuse for w in works)
     merged.flow = works[0].flow
     return merged
+
+
+class FusedBatch:
+    """A cross-key fused dispatch in flight: member BatchWorks in combo
+    (sorted-identity) order — the fused program's operand and output
+    order — plus the program-cache combo key.  Members keep their own
+    ``_outstanding`` units and fence and resolve independently."""
+
+    __slots__ = ("members", "combo")
+
+    def __init__(self, members, combo):
+        self.members = tuple(members)
+        self.combo = combo
 
 
 #: cycles of the device's clock per second, measured once per device by
@@ -342,6 +375,15 @@ class Replica:
         self._overlap_on = (
             os.environ.get("PINT_TPU_SERVE_OVERLAP", "1") != "0"
         )
+        self._xkey_on = (
+            os.environ.get("PINT_TPU_SERVE_XKEY_FUSE", "1") != "0"
+        )
+        self._xkey_threshold = int(
+            os.environ.get("PINT_TPU_SERVE_XKEY_THRESHOLD", "4096")
+        )
+        self._xkey_max = max(2, int(
+            os.environ.get("PINT_TPU_SERVE_XKEY_MAX", "4")
+        ))
         self._draining = False
         # health state: reads are bare attribute loads (GIL-atomic) so
         # submit() can check state while holding only _cond; writes go
@@ -351,6 +393,11 @@ class Replica:
             threading.Lock(), "Replica._state_lock"
         )
         self._consecutive = 0
+        # background-quantum occupancy: raised by the job scheduler
+        # around each quantum (note_background); the router folds it
+        # into the load so interactive placement avoids an executor busy
+        # with background work.  Reads are bare attribute loads
+        self.background = 0
         self.batches_done = 0  # fencer-thread only
         self.failures = 0
         #: (op, capacity, CUDA-event ms from a batch's first launch to its
@@ -433,31 +480,27 @@ class Replica:
         kkey = work.kernel_key()
         k = self._kernels.get(kkey)
         if k is None:
-            from pint_tpu_torch.serve.session import TRANSFORM_LOCK
+            from pint_tpu_torch.serve import session as smod
+            from pint_tpu_torch.serve import warm_ledger as wlmod
 
             inner = work.make_kernel(self.programs, self.tag)
             obs_metrics.counter(
                 f"serve.composition.{work.session.cid}.compiles"
             ).inc()
-            first = [True]
-            lock = work.session.trace_lock
-            replays = self._cuda
+            warm = (work.session, work.key, work.cap, self.tag)
+            noted = [False]
 
-            def k(*args):
-                # the first call builds, warms up and (on the card)
-                # captures: one at a time per session, as the reference
-                # serializes its traces.  A call that runs the program's
-                # Python body (the first, or any on the CPU) holds the
-                # process's transform lock
-                if first[0]:
-                    with lock, TRANSFORM_LOCK:
-                        first[0] = False
-                        return inner(*args)
-                if replays:
-                    return inner(*args)
-                with TRANSFORM_LOCK:
-                    return inner(*args)
+            def ledgered(*args):
+                out = inner(*args)
+                if not noted[0]:
+                    # the warm ledger's write-through, at the program's
+                    # first (building, capturing) call
+                    noted[0] = True
+                    wlmod.note_warm(*warm)
+                return out
 
+            k = smod.serialized(ledgered, work.session.trace_lock,
+                                self._cuda)
             self._kernels[kkey] = k
         return k
 
@@ -480,7 +523,11 @@ class Replica:
                 self._batch_leaves(work)
                 self._requeue(work, self)
                 continue
-            self._run(self._coalesce(work))
+            job = self._fuse(self._coalesce(work))
+            if isinstance(job, FusedBatch):
+                self._run_fused(job)
+            else:
+                self._run(job)
         self._fence_q.put(None)
 
     def _coalesce(self, work: BatchWork) -> BatchWork:
@@ -532,6 +579,62 @@ class Replica:
         )
         return merged
 
+    def _fusible(self, work: BatchWork) -> bool:
+        """Small-batch fusion eligibility: at or below the bucket cutoff
+        (key[2] is the group's TOA bucket) and not a fused-failure
+        retry."""
+        return (not work.no_fuse
+                and int(work.key[2]) <= self._xkey_threshold)
+
+    def _fuse(self, work: BatchWork):
+        """Cross-key fusion: widen the dispatch across DISTINCT (key,
+        capacity) identities the coalescer cannot touch.  Scans the queue
+        for up to ``_xkey_max - 1`` fusible co-resident batches whose
+        identities differ from ``work``'s and each other's, forms the
+        sorted-identity combo, and fuses only when the combo program is
+        already built on this replica OR every member's solo program is —
+        the coalescer's gate lifted to the combo, so a steady state never
+        builds (the one build of a combo runs off solo-warmed members).
+        Candidates stay queued when the gate fails.  Members keep their
+        individual ``_outstanding`` units.  Dispatcher-thread only; queue
+        surgery under ``_cond``.  -> a FusedBatch, or ``work``."""
+        if not self._xkey_on or not self._fusible(work):
+            return work
+        with self._cond:
+            if not self._queue:
+                return work
+            seen = {work.kernel_key()}
+            cands: list[BatchWork] = []
+            for w in self._queue:
+                if len(cands) + 2 > self._xkey_max:
+                    break
+                kk = w.kernel_key()
+                if self._fusible(w) and kk not in seen:
+                    cands.append(w)
+                    seen.add(kk)
+            if not cands:
+                return work
+            order = sorted([work] + cands,
+                           key=lambda w: repr(w.kernel_key()))
+            combo = ("xkey",) + tuple(w.kernel_key() for w in order)
+            if combo not in self._kernels and not all(
+                    w.kernel_key() in self._kernels for w in order):
+                return work
+            for w in cands:
+                self._queue.remove(w)
+            self._cond.notify_all()
+        n = sum(len(w.live) for w in order)
+        with TRACER.span(
+            "replica:xkey-fuse", "fabric", replica=self.tag,
+            members=len(order), n=n,
+        ):
+            fused = FusedBatch(order, combo)
+        obs_metrics.counter("serve.fabric.xkey_fused").inc(len(cands))
+        obs_metrics.histogram("serve.fabric.xkey_members").observe(
+            len(order)
+        )
+        return fused
+
     def _shed_late(self, work: BatchWork):
         """Dispatch-boundary deadline re-check: a member that expired
         while its batch sat in this replica's queue sheds typed HERE,
@@ -581,6 +684,7 @@ class Replica:
         )
         kept.excluded = set(work.excluded)
         kept.last_error = work.last_error
+        kept.no_fuse = work.no_fuse
         # survivors keep every boundary already recorded on the shed
         # batch (route/queue)
         kept.stamps = dict(work.stamps)
@@ -603,7 +707,7 @@ class Replica:
         tree_map(put, work.ops)
         return out
 
-    def _launch(self, work: BatchWork, kernel, ops):
+    def _launch(self, work: BatchWork, kernel, ops, site=None):
         """Launch one batch: -> (outputs, handed-over deadlines, (start,
         done) events).  The caller holds the device's lock."""
         events = None
@@ -611,7 +715,7 @@ class Replica:
             events = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
             events[0].record()
-            hang = faults.take_hang(work.site(self.tag))
+            hang = faults.take_hang(site or work.site(self.tag))
             if hang is not None:
                 _spin(hang, self.device)  # a wedged launch
         try:
@@ -640,6 +744,30 @@ class Replica:
                     work, kernel, self._place_ops(work))
             self._read(out, deadlines, events)
 
+    def prewarm_fused(self, works: list) -> bool:
+        """Warm ONE cross-key fused combo program off the member batches'
+        built solo programs (the combo :meth:`_fuse` would form), so a
+        first-seen combo never builds inside a measured window.  False
+        (nothing done) when fusion is off, fewer than two members are
+        given, or one is not fusible.  The replica must be quiescent (no
+        outstanding work), as for :meth:`prewarm_kernel`."""
+        if (not self._xkey_on or len(works) < 2
+                or not all(self._fusible(w) for w in works)):
+            return False
+        order = sorted(works, key=lambda w: repr(w.kernel_key()))
+        combo = ("xkey",) + tuple(w.kernel_key() for w in order)
+        with TRACER.span(
+            "replica:prewarm", "fabric", replica=self.tag, op="xkey",
+            members=len(order),
+        ):
+            kernel = self._fused_kernel_for(combo, order)
+            with device_lock(self.device), self._on_stream():
+                out, deadlines, events = self._launch(
+                    order[0], kernel, self._place_flat(order),
+                    site=self._fused_site(combo, order))
+            self._read(out, deadlines, events)
+        return True
+
     def _on_stream(self):
         return (torch.cuda.stream(self.stream) if self._cuda
                 else contextlib.nullcontext())
@@ -654,41 +782,190 @@ class Replica:
             self._batch_leaves(work)
             work.fail(e)
             return
+        self._dispatch([work], kernel, work,
+                       lambda e: self._batch_error(work, e),
+                       op=work.key[0], cap=work.cap)
+
+    def _dispatch(self, works, kernel, item, on_error, site=None,
+                  **span):
+        """Place, launch and hand to the fence ONE dispatch of
+        ``works`` (a batch alone, or a fused batch's members in combo
+        order) through ``kernel``; the fence gets ``item``.  With
+        transfer overlap the operands go to the device before the
+        inflight semaphore, while up to ``inflight`` prior dispatches
+        still compute; the semaphore then bounds the dispatches awaiting
+        this replica's fence (backpressure), and the launch holds the
+        device's lock.  A failure goes to ``on_error(e)``, the inflight
+        unit released first."""
+        flow = works[0].flow
+
+        def place():
+            ops = self._place_flat(works)
+            for w in works:
+                w.stamp("place")
+            return ops
+
         ops = None
         if self._overlap_on:
-            # transfer overlap: the operands go to the device HERE, before
-            # the inflight semaphore — while up to `inflight` prior
-            # batches still compute
             try:
                 with TRACER.span(
                     "replica:place", "fabric", replica=self.tag,
-                    op=work.key[0], cap=work.cap, flow=work.flow,
+                    flow=flow, **span,
                 ), device_lock(self.device):
-                    ops = self._place_ops(work)
-                work.stamp("place")
+                    ops = place()
                 obs_metrics.counter("serve.fabric.overlapped").inc()
             except BaseException as e:
-                self._batch_error(work, e)
+                on_error(e)
                 return
-        # backpressure: at most `inflight` dispatched batches may await
-        # this replica's fence
         self._sem.acquire()
         try:
             with TRACER.span(
                 "replica:dispatch", "fabric", replica=self.tag,
-                op=work.key[0], n=len(work.live), cap=work.cap,
-                flow=work.flow,
+                n=sum(len(w.live) for w in works), flow=flow, **span,
             ), device_lock(self.device):
                 if ops is None:
-                    ops = self._place_ops(work)
-                    work.stamp("place")
-                out, deadlines, events = self._launch(work, kernel, ops)
-            work.stamp("dispatch")
+                    ops = place()
+                out, deadlines, events = self._launch(
+                    works[0], kernel, ops, site=site)
+            for w in works:
+                w.stamp("dispatch")
         except BaseException as e:
             self._sem.release()
-            self._batch_error(work, e)
+            on_error(e)
             return
-        self._fence_q.put((work, out, deadlines, events))
+        self._fence_q.put((item, out, deadlines, events))
+
+    # -- the cross-key fused dispatch pipeline ----------------------------
+    def _fused_site(self, combo, members) -> str:
+        from pint_tpu_torch.utils import compute_hash
+
+        return (f"serve:xkey:{compute_hash(repr(combo))[:8]}"
+                f"x{len(members)}@{self.tag}")
+
+    def _fused_kernel_for(self, combo: tuple, members):
+        """Build-or-fetch the fused program of one sorted member combo.
+        Its first call runs every member's body, so it holds EVERY
+        distinct member session's trace lock, taken in one global order
+        (by the raw locks' identity) so that fusions on other replicas
+        cannot deadlock.  Dispatcher-thread only (owns ``_kernels``)."""
+        k = self._kernels.get(combo)
+        if k is None:
+            from pint_tpu_torch.serve import session as smod
+
+            inner = smod.build_fused_kernel(
+                [(w.session, w.key, w.ops) for w in members],
+                self.programs, combo, self._fused_site(combo, members),
+            )
+            locks = [lk for _, lk in sorted(
+                {lockwitness.lock_id(w.session.trace_lock):
+                 w.session.trace_lock for w in members}.items()
+            )]
+            k = smod.serialized(inner, locks, self._cuda)
+            self._kernels[combo] = k
+        return k
+
+    def _place_flat(self, members) -> list:
+        """The members' placed operand leaves, flat, in combo order: the
+        fused program's inputs."""
+        flat = []
+        for w in members:
+            flat.extend(self._place_ops(w))
+        return flat
+
+    def _run_fused(self, fused: FusedBatch):
+        kept = []
+        for w in fused.members:
+            w2 = self._shed_late(w)
+            if w2 is not None:
+                kept.append(w2)
+        if len(kept) < len(fused.members):
+            # a member expired whole at the dispatch boundary: the combo
+            # changed — the survivors dispatch solo rather than building
+            # a one-off sub-combo
+            for w in kept:
+                self._run(w)
+            return
+        fused = FusedBatch(kept, fused.combo)
+
+        def failed(e):
+            self._fused_error([(w, e) for w in fused.members])
+
+        try:
+            kernel = self._fused_kernel_for(fused.combo, fused.members)
+        except BaseException as e:
+            failed(e)
+            return
+        # ONE dispatch (one inflight unit) for the combo
+        self._dispatch(fused.members, kernel, fused, failed,
+                       site=self._fused_site(fused.combo, fused.members),
+                       op="xkey", members=len(fused.members))
+
+    def _fence_fused(self, fused: FusedBatch, out, deadlines, events):
+        """De-multiplex one fused dispatch: member ``i``'s output is
+        ``out[i]``.  The dispatch fences once; then each member validates
+        and resolves on its own, as the solo fence does, so a non-finite
+        member fails only its own futures; the one inflight unit releases
+        once.  Fencer-thread only."""
+        try:
+            with TRACER.span(
+                "replica:fence", "fabric", replica=self.tag, op="xkey",
+                members=len(fused.members), flow=fused.members[0].flow,
+            ):
+                mats_all, ms = self._read(out, deadlines, events)
+        except BaseException as e:
+            self._sem.release()
+            self._fused_error([(w, e) for w in fused.members])
+            return
+        del out
+        if ms is not None:
+            self.device_ms.append(("xkey", len(fused.members), ms))
+        failed: list = []
+        any_ok = False
+        for w, mats in zip(fused.members, mats_all):
+            try:
+                w.stamp("fence")
+                self._validator(w, mats, self.tag)
+            except BaseException as e:
+                failed.append((w, e))
+                continue
+            any_ok = True
+            try:
+                self._finisher(w, mats, self)
+            except BaseException as e:
+                w.fail(e)
+            self.batches_done += 1
+            self._m_batches.inc()
+            self._batch_leaves(w)
+        self._sem.release()
+        if any_ok:
+            self.note_success()
+        if failed:
+            self._fused_error(failed)
+
+    def _fused_error(self, pairs):
+        """Failure of (some of) a fused dispatch's members, ``pairs`` =
+        [(work, error), ...]: ONE health hit for the one failed dispatch,
+        and every member marked ``no_fuse`` before it re-routes, so its
+        retry runs the solo path — the fused overlay never wedges a batch
+        that would succeed unfused.  Deterministic member errors (kind
+        None) fail their own futures, as in ``_batch_error``."""
+        health_hit = False
+        for w, e in pairs:
+            w.last_error = e
+            w.excluded.add(self.rid)
+            w.no_fuse = True
+            self._batch_leaves(w)
+            kind = health_kind(e)
+            if kind is None:
+                w.fail(e)
+                continue
+            if not health_hit:
+                health_hit = True
+                with self._state_lock:
+                    self.failures += 1
+                obs_metrics.counter("serve.fabric.failures").inc()
+                self.note_failure(kind, e)
+            self._requeue(w, self)
 
     def _read(self, out, deadlines, events):
         """The fence: keep the batch's deadlines and its done event
@@ -715,6 +992,9 @@ class Replica:
             if item is None:
                 break
             work, out, deadlines, events = item
+            if isinstance(work, FusedBatch):
+                self._fence_fused(work, out, deadlines, events)
+                continue
             try:
                 with TRACER.span(
                     "replica:fence", "fabric", replica=self.tag,
@@ -810,6 +1090,13 @@ class Replica:
             self._consecutive = 0
             if self._state == DEGRADED:
                 self._set_state(LIVE, kind="recovered")
+
+    def note_background(self, delta: int):
+        """The job scheduler's quantum bracket: +1 before a background
+        quantum runs on this executor, -1 after (the router's load
+        term)."""
+        with self._state_lock:
+            self.background = max(0, self.background + int(delta))
 
     def readmit(self):
         """Probe-driven re-admission (pool's canary loop)."""

@@ -30,21 +30,38 @@ by a load-aware router):
   ``excluded`` set (replicas that already failed it) is honored, so
   re-routes are bounded by the pool width.
 
+Fusion colocation: the replica's cross-key fuser
+(``replica.py::Replica._fuse``) can only merge batches queued on the SAME
+replica, so while ``PINT_TPU_SERVE_XKEY_FUSE`` is on, a small group's
+(bucket at or below ``PINT_TPU_SERVE_XKEY_THRESHOLD``) COLD placement
+prefers the usable replica already holding the most other small-group
+placements (ties by load, then rid): distinct small compositions pile
+onto one replica and co-resident batches of different keys become
+fusible.  Spill under saturation is unchanged.  Loads count the job
+scheduler's in-flight background quanta (``Replica.background``), so
+interactive placement steers away from a replica running one.
+
 Not ported with this router: the reference's gang classification (big
-groups on gang executors), the colocation of small groups for its
-cross-key fuser, and the demand signals and placement purge of its
-elastic repartitioner.  Each comes with its consumer (``gang.py``, the
-fuser, ``elastic.py``; ROADMAP A12c).
+groups on gang executors) and the demand signals, placement purge and
+epoch of its elastic repartitioner — ROADMAP A12d, with ``gang.py`` and
+``elastic.py``.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 
 from pint_tpu_torch.obs import metrics as obs_metrics
 from pint_tpu_torch.obs.trace import TRACER
 from pint_tpu_torch.runtime import lockwitness
 from pint_tpu_torch.serve.fabric.replica import DEGRADED, LIVE
+
+
+def _load(r) -> float:
+    """A replica's load: its outstanding batches plus the background
+    quanta it is running (tolerant of test doubles without the term)."""
+    return r.outstanding + getattr(r, "background", 0)
 
 
 def _saturated(r) -> bool:
@@ -60,6 +77,12 @@ class Router:
         self.pool = pool
         self.affinity = max(
             1, int(affinity) if affinity else pool.size
+        )
+        self.xkey_fuse = (
+            os.environ.get("PINT_TPU_SERVE_XKEY_FUSE", "1") != "0"
+        )
+        self.xkey_threshold = int(
+            os.environ.get("PINT_TPU_SERVE_XKEY_THRESHOLD", "4096")
         )
         self._placements: dict = {}  # group key -> [rid, ...]
         self._rotor: dict = {}  # round-robin counters
@@ -89,6 +112,24 @@ class Router:
                     work.stamp("route")  # stage clock
             return rep
 
+    def _is_small(self, key) -> bool:
+        """Fusion-class work: bucket (key[2]) at or below the cross-key
+        fusion cutoff (``Replica._fusible``'s criterion)."""
+        try:
+            return int(key[2]) <= self.xkey_threshold
+        except (IndexError, TypeError, ValueError):
+            return False
+
+    def _small_counts_locked(self, key) -> dict:
+        """rid -> how many OTHER small groups are placed there (the
+        colocation score)."""
+        counts: dict = {}
+        for k2, rids in self._placements.items():
+            if k2 != key and self._is_small(k2):
+                for rid in rids:
+                    counts[rid] = counts.get(rid, 0) + 1
+        return counts
+
     def _route_locked(self, key, exclude):
         placed = self._placements.setdefault(key, [])
         usable = {
@@ -111,7 +152,7 @@ class Router:
                 r for r in usable.values() if r.rid not in placed
             ]
             if fresh:
-                r = min(fresh, key=lambda r: (r.outstanding, r.rid))
+                r = min(fresh, key=lambda r: (_load(r), r.rid))
                 placed.append(r.rid)
                 cands.append(r)
                 self._m_spills.inc()
@@ -120,16 +161,22 @@ class Router:
                     width=len(placed),
                 )
         if not cands:
-            # no placed replica is usable: (re)place on the
-            # least-loaded usable replica
+            # no placed replica is usable: (re)place on the least-loaded
+            # usable replica — except that small groups colocate with
+            # other small groups while cross-key fusion is on
             if not usable:
                 return None
-            r = min(usable.values(), key=lambda r: (r.outstanding, r.rid))
+            if self.xkey_fuse and self._is_small(key):
+                small = self._small_counts_locked(key)
+                r = min(usable.values(), key=lambda r: (
+                    -small.get(r.rid, 0), _load(r), r.rid))
+            else:
+                r = min(usable.values(), key=lambda r: (_load(r), r.rid))
             if r.rid not in placed:
                 placed.append(r.rid)
             return r
-        lo = min(r.outstanding for r in cands)
-        tied = [r for r in cands if r.outstanding == lo]
+        lo = min(_load(r) for r in cands)
+        tied = [r for r in cands if _load(r) == lo]
         i = self._rotor.get(key, 0)
         self._rotor[key] = i + 1
         return tied[i % len(tied)]

@@ -42,6 +42,7 @@ Gram kernel once for the whole batch (``ops/fused_gram.py``'s vmap rule).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import threading
@@ -288,7 +289,7 @@ class ParRecord:
         self.par_hash = phash
         self.model = get_model(text)
         self._refs = None  # lazily split (refvec, flatvec, static, layout)
-        self._compositions: dict = {}  # (pulse#, wideband) -> key
+        self._compositions: dict = {}  # (pulse#, wideband, masks) -> key
         self._joined: set = set()  # composition ids already counted
         self._polycos: OrderedDict = OrderedDict()  # span -> Polycos
 
@@ -319,10 +320,16 @@ class ParRecord:
         computed from a light CompiledModel over the request's own
         (unpadded) bundle on the host: structure only, no prototype, no
         padding, no TZR ingest (the TZR axis enters the key via the
-        model's anchor)."""
+        model's anchor).  Cached per the TOA structure that can move the
+        key: the pulse-number and wideband flags and the mask columns'
+        shapes (an ECORR quantization matrix has one column an epoch, so
+        two TOA sets of one par may key two compositions, whose programs
+        take differently shaped inputs)."""
         flags = (
             not bool(torch.all(torch.isnan(cpu_bundle.pulse_number))),
             cpu_bundle.dm_meas is not None,
+            tuple(sorted((k, tuple(v.shape[1:]))
+                         for k, v in cpu_bundle.masks.items())),
         )
         comp = self._compositions.get(flags)
         if comp is None:
@@ -414,6 +421,11 @@ class Session:
         self.composition = composition
         self.cid = composition_id(composition)
         self.device = torch.device(device)
+        self.founder_hash = record.par_hash
+        # the founder's par TEXT rides into the warm-restart ledger
+        # (serve/warm_ledger.py): the replay re-parses it, so the
+        # composition key recomputes identically at boot
+        self.founder_par = record.par
         # the device work of a build is taken in turns with captures on
         # the same device (runtime/graphs.py::device_lock)
         with device_lock(self.device):
@@ -434,6 +446,38 @@ class Session:
         self.trace_lock = lockwitness.wrap(
             threading.Lock(), "Session.trace_lock"
         )
+
+    @classmethod
+    def from_prototype(cls, record: ParRecord, cm, bucket: int,
+                       composition: tuple) -> "Session":
+        """Rebuild a serving session from a persisted prototype — the
+        warm-restart ledger's replay (serve/warm_ledger.py).  ``cm`` is a
+        CompiledModel over the ledger sidecar's already padded founder
+        bundle (TZR row included), so the boot needs no TOA table, no
+        ingest environment and no TZR ingest; the session is identical in
+        every shape and dtype to the one live traffic would build."""
+        s = object.__new__(cls)
+        s.bucket = int(bucket)
+        s.composition = composition
+        s.cid = composition_id(composition)
+        s.device = cm.device
+        s.founder_hash = record.par_hash
+        s.founder_par = record.par
+        if cm.bundle.ntoa != s.bucket:
+            raise PintTpuError(
+                f"prototype bundle has {cm.bundle.ntoa} TOAs, session "
+                f"bucket is {s.bucket}"
+            )
+        with device_lock(s.device):
+            cm._build_refs()
+        s.cm = cm
+        s.mode = default_accel_mode(cm)
+        s.static_ref = record.static_ref
+        s.layout = record.layout
+        s.trace_lock = lockwitness.wrap(
+            threading.Lock(), "Session.trace_lock"
+        )
+        return s
 
 
 # -- the batched programs --------------------------------------------------
@@ -467,6 +511,9 @@ def _swapped(session: Session, fn):
         proto._flat_ref = flatvec
         return fn(proto, *args)
 
+    # what a body builds ahead of its first call (host tables) is built
+    # on this copy
+    call.proto = proto
     return call
 
 
@@ -565,6 +612,198 @@ class FitKernel:
                 torch.stack(bads, dim=1))
 
 
+def stream_fast_path(cm):
+    """Which O(append) incremental path a composition is eligible for:
+    ``'fourier'`` (exactly one pure-Fourier achromatic correlated basis —
+    appended basis rows evaluate at the stream's FROZEN (freqs, day0)
+    anchor, ``models/noise.py::fourier_basis_rows``), ``'white'`` (no
+    correlated errors — the ``noise_basis_or_empty`` dummy column, whose
+    appended rows are exact zeros), or ``None`` (quantized or chromatic
+    bases, whose appended rows are not a function of the new TOAs alone:
+    every append of such a composition takes the warm refit rung).
+    Answered from the components' structure, the condition under which
+    ``CompiledModel.noise_fourier_spec`` returns a spec: no device
+    work."""
+    if not cm.has_correlated_errors:
+        return "white"
+    comps = cm.model.noise_components
+    specs = [c for c in comps if hasattr(c, "fourier_spec")]
+    ncorr = sum(c.introduces_correlated_errors for c in comps)
+    return "fourier" if len(specs) == 1 and ncorr == 1 else None
+
+
+def _masked_ninv(cm, x, bucket, nlive):
+    """Per-row inverse white variance with EXACT zeros past ``nlive``:
+    pad rows add nothing to the accumulated Gram blocks."""
+    live = torch.arange(bucket, device=cm.device) < nlive
+    w = 1.0 / torch.square(cm.scaled_sigma(x))
+    return torch.where(live, w, torch.zeros_like(w))
+
+
+def _append_run(session: Session, rebuild):
+    """Raw batched O(append) body: (tail bundle stack, (refvecs,
+    flatvecs), aux stack) leaves -> (state' stack, dx, covn, norm, chi2).
+
+    Each row's ``aux`` carries a stream's solver state
+    (``fitting/gls.py::stream_state_*``), the frozen Fourier anchor
+    ``(freqs, day0)`` and the live tail count ``nlive`` as inputs, so
+    appending to any stream of the composition replays one program.  A
+    failed drift check rolls the row's state back to its PRE-append
+    input (``stream_state_solve``'s own fallback is the post-append
+    state, which a degenerate update may already have poisoned) and
+    gives that row NaN dx and chi2: the signal the stream's fallback
+    chain keys on."""
+    from pint_tpu_torch.fitting.base import design_with_offset
+    from pint_tpu_torch.fitting.gls import (
+        stream_state_append,
+        stream_state_solve,
+    )
+    from pint_tpu_torch.models.noise import fourier_basis_rows
+    from pint_tpu_torch.ops import solve_policy
+
+    proto = session.cm
+    no = noffset(proto)
+    bucket = session.bucket
+    rtol = solve_policy.stream_drift_rtol()
+    path = stream_fast_path(proto)
+    if path is None:
+        raise PintTpuError(
+            "composition has no incremental streaming path "
+            "(quantized/chromatic correlated basis) — appends must take "
+            "the warm refit rung"
+        )
+    (kcols,), _ = _basis_struct(proto)
+
+    def one(cm, aux):
+        state = aux["state"]
+        x = state["x"]
+        r = cm.time_residuals(x, subtract_mean=False)
+        M = design_with_offset(cm, x)
+        Ninv = _masked_ninv(cm, x, bucket, aux["nlive"])
+        if path == "fourier":
+            T = fourier_basis_rows(cm.bundle, aux["freqs"], aux["day0"])
+        else:  # white: the dummy basis column stays exactly zero
+            T = torch.zeros((bucket, kcols), dtype=F64, device=cm.device)
+        st = stream_state_append(state, r, M, Ninv, T)
+        st2, dx, (covn, nrm), chi2 = stream_state_solve(
+            st, no, check_rtol=rtol)
+        ok = torch.isfinite(chi2) & torch.all(torch.isfinite(dx))
+        st2 = {k: torch.where(ok, v, state[k]) for k, v in st2.items()}
+        return st2, dx, covn, nrm, chi2
+
+    call = _swapped(session, one)
+
+    def run(*leaves):
+        bundles, (refvecs, flatvecs), auxs = rebuild(leaves)
+        flat, brebuild = flatten(bundles)
+        aflat, arebuild = flatten(auxs)
+        na = len(aflat)
+
+        def row(refvec, flatvec, *rest):
+            return call(brebuild(rest[na:]), refvec, flatvec,
+                        arebuild(rest[:na]))
+
+        return vmap(row)(refvecs, flatvecs, *aflat, *flat)
+
+    return run
+
+
+def _stream_init_run(session: Session, rebuild):
+    """Raw streaming-state (re)build body: (padded full bundle leaves,
+    refvec, flatvec, x, nlive) -> the state dict — the only O(n) solver
+    work of a stream, run at its open and at every refresh."""
+    from pint_tpu_torch.fitting.base import design_with_offset
+    from pint_tpu_torch.fitting.gls import stream_state_init
+
+    bucket = session.bucket
+
+    def one(cm, x, nlive):
+        r = cm.time_residuals(x, subtract_mean=False)
+        M = design_with_offset(cm, x)
+        Ninv = _masked_ninv(cm, x, bucket, nlive)
+        T, phi = cm.noise_basis_or_empty(x)
+        return stream_state_init(r, M, Ninv, T, phi, x)
+
+    call = _swapped(session, one)
+
+    def run(*leaves):
+        bundle, refvec, flatvec, x, nlive = rebuild(leaves)
+        return call(bundle, refvec, flatvec, x, nlive)
+
+    return run
+
+
+def _run_for_key(session: Session, key: tuple, ops):
+    """The raw batched body (a function of the operand leaves) for one
+    fabric group key: the function the key's program would run, for the
+    cross-key fuser to compose.  A fit's body is its whole ``maxiter``
+    loop (:class:`FitKernel` over the raw step)."""
+    nops, rebuild = operand_structure(ops)
+    if key[0] == "fit":
+        _, _, _, mode, maxiter, tol = key
+        step = _fit_step_run(session, mode, tol, nops, rebuild)
+        p = session.cm.nfree + noffset(session.cm)
+        return FitKernel(step, p, maxiter, session.device)
+    if key[0] == "append":
+        return _append_run(session, rebuild)
+    return _residuals_run(session, key[3], rebuild)
+
+
+def serialized(inner, lock, replays: bool):
+    """``inner`` (a program) called under the serving locks: the first
+    call builds, warms up and (on the card) captures, one at a time per
+    session (``lock``, the session's ``trace_lock``), as the reference
+    serializes its traces; a call that runs the Python body (the first,
+    or any on the CPU) holds :data:`TRANSFORM_LOCK`.  ``lock`` may be a
+    list of locks, taken in its order."""
+    locks = lock if isinstance(lock, list) else [lock]
+    first = [True]
+
+    def k(*args):
+        if first[0]:
+            with contextlib.ExitStack() as stack:
+                for lk in locks:
+                    stack.enter_context(lk)
+                stack.enter_context(TRANSFORM_LOCK)
+                first[0] = False
+                return inner(*args)
+        if replays:
+            return inner(*args)
+        with TRANSFORM_LOCK:
+            return inner(*args)
+
+    return k
+
+
+def run_fenced(call, device, stream=None):
+    """``call()`` launched on ``device`` and read back as host-owned
+    numpy: the device's lock is held while it launches and while it is
+    read, never across the wait between (which keeps the call's watchdog
+    deadlines and its done event through ``capture_gate``), so a capture
+    in another thread is never held up by this one's device time.  On the
+    CPU a plain call."""
+    from pint_tpu_torch.runtime import guard
+    from pint_tpu_torch.runtime.graphs import capture_gate
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return guard.fence_owned(call())
+    ctx = (torch.cuda.stream(stream) if stream is not None
+           else contextlib.nullcontext())
+    done = torch.cuda.Event()
+    with device_lock(device), ctx:
+        try:
+            out = call()
+        except BaseException:
+            guard.take_deadlines()  # a partial launch's: dropped
+            raise
+        deadlines = guard.take_deadlines()
+        done.record()
+    guard.wait_deadlines(deadlines, capture_gate(device), done)
+    with device_lock(device), ctx:
+        return guard.fence_owned(out)
+
+
 def build_residuals_kernel(session: Session, subtract_mean: bool, ops,
                            programs, key, site: str):
     """Batched residuals kernel (see :func:`_residuals_run`): the
@@ -584,6 +823,63 @@ def build_fit_kernel(session: Session, mode: str, maxiter: int,
     step = programs.program(run, key, site=site)
     p = session.cm.nfree + noffset(session.cm)
     return FitKernel(step, p, maxiter, session.device)
+
+
+def build_append_kernel(session: Session, ops, programs, key, site: str):
+    """Batched O(append) kernel (see :func:`_append_run`): the program of
+    ``programs`` under ``key``.  The stacked solver states are per-batch
+    copies of the host-held stream states, which commit only from fenced
+    outputs; the warm ledger never records append programs (a replay
+    cannot make up a solver-state stack)."""
+    _, rebuild = operand_structure(ops)
+    return programs.program(_append_run(session, rebuild), key, site=site)
+
+
+def stream_init_operands(session: Session, host_bundle, refnum, x,
+                         nlive: int):
+    """The init program's operands: (padded host bundle, refvec,
+    flatvec, x, nlive) as host numpy."""
+    from pint_tpu_torch.serve.batcher import pad_bundle_np
+
+    refvec, flatvec = refnum
+    return (pad_bundle_np(host_bundle, session.bucket), refvec, flatvec,
+            np.asarray(x, dtype=np.float64), np.int64(nlive))
+
+
+def build_stream_init_kernel(session: Session, ops, programs, key,
+                             site: str):
+    """Streaming-state (re)build kernel (see :func:`_stream_init_run`),
+    run directly by the stream at its open and refresh, outside the
+    batcher; ``ops`` from :func:`stream_init_operands`."""
+    _, rebuild = operand_structure(ops)
+    return programs.program(_stream_init_run(session, rebuild), key,
+                            site=site)
+
+
+def build_fused_kernel(parts, programs, combo, site: str):
+    """Cross-key fused kernel: ``parts`` is a list of (session, group
+    key, operand tree) members, each contributing the body its own
+    program runs (:func:`_run_for_key`).  The fused program takes the
+    members' operand leaves FLAT, in ``parts`` order, and runs the member
+    bodies one after another as ONE program (on the card one captured
+    graph, one replay), returning the tuple of per-member outputs.  Each
+    member runs the same operations on the same inputs as its solo
+    program, so the de-multiplexed results are bitwise those of separate
+    dispatches.  Cached under ``combo`` (the sorted member (key,
+    capacity) identities) in the replica's program cache."""
+    runs, counts = [], []
+    for session, key, ops in parts:
+        runs.append(_run_for_key(session, key, ops))
+        counts.append(operand_structure(ops)[0])
+
+    def fused(*flat):
+        out, i = [], 0
+        for run, n in zip(runs, counts):
+            out.append(run(*flat[i:i + n]))
+            i += n
+        return tuple(out)
+
+    return programs.program(fused, combo, site=site)
 
 
 class SessionCache:
@@ -724,6 +1020,30 @@ class SessionCache:
                 "session-evict", "serve", composition=old.cid, bucket=b
             )
         return s
+
+    def install(self, session: Session) -> Session:
+        """Insert a REBUILT session (the warm ledger's replay) unless an
+        equivalent one is live — get-or-keep, returning the canonical
+        instance, so the first real request of the composition after a
+        restart is a session hit on the already warmed programs."""
+        key = (session.composition, session.bucket)
+        evicted = []
+        with self._lock:
+            cur = self._sessions.get(key)
+            if cur is not None:
+                self._sessions.move_to_end(key)
+                return cur
+            self._sessions[key] = session
+            self._sessions.move_to_end(key)
+            while len(self._sessions) > self.max_sessions:
+                evicted.append(self._sessions.popitem(last=False))
+            self._note_sizes_locked()
+        for (_comp, b), old in evicted:
+            self._evictions.inc()
+            TRACER.event(
+                "session-evict", "serve", composition=old.cid, bucket=b
+            )
+        return session
 
     # -- one-call resolver -------------------------------------------------
     def get_or_create(self, par, toas, min_bucket=None) -> Session:

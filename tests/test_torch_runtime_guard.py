@@ -974,6 +974,34 @@ def _card():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("path", ["grid", "nested"])
+def test_program_host_reads_poll_their_deadlines(monkeypatch, path):
+    """The grid's and the nested sampler's host reads poll the deadlines
+    their replays queued (``check_deadlines(wait=True)``), as the fit
+    loops and ``run_ensemble`` do: a wedged replay raises GuardTimeout
+    there, and no finished call stays queued on the thread, holding its
+    program and the program's graph memory alive."""
+    from pint_tpu_torch import bayesian, gridutils, nested
+
+    mod = gridutils if path == "grid" else bayesian
+    calls = []
+    real = mod.check_deadlines
+    monkeypatch.setattr(mod, "check_deadlines",
+                        lambda wait=False: calls.append(wait) or real(wait))
+    m, t = make_test_pulsar(PAR_WHITE, ntoa=64, seed=3, device="cpu")
+    if path == "grid":
+        f0 = float(m.params["F0"].value)
+        gridutils.grid_chisq(t, m, {"F0": [f0 - 1e-11, f0, f0 + 1e-11]},
+                             device="cpu")
+    else:
+        bt = bayesian.BayesianTiming(m, t, device="cpu")
+        monkeypatch.setattr(
+            nested, "nested_sample",
+            lambda loglike, *a, **kw: loglike(np.zeros((3, bt.nparams))))
+        bt.sample_nested(batch=4)
+    assert calls == [True]
+
+
 @pytest.mark.gpu
 def test_card_refit_after_commit_captures_nothing():
     """On the card a fit's step program is captured once; the refit after
@@ -1052,6 +1080,27 @@ def test_card_device_wedge_seen_at_the_host_read():
     torch.cuda.synchronize()
     assert 0.2 <= seen < time.monotonic() - t0
     assert marked == [1] and guard.STATS.timeouts == 1
+
+
+@pytest.mark.gpu
+def test_card_grid_leaves_no_deadline_queued():
+    """On the card: after ``grid_chisq`` returns, nothing it launched
+    stays queued under a deadline on the calling thread, so its program
+    (and the program's graph pool) goes with its compiled model."""
+    import gc
+
+    from pint_tpu_torch.gridutils import grid_chisq
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    m, t = make_test_pulsar(PAR_WHITE, ntoa=2048, seed=3, device="cpu")
+    f0 = float(m.params["F0"].value)
+    guard.check_deadlines(wait=True)
+    grid_chisq(t, m, {"F0": [f0 - 1e-11, f0, f0 + 1e-11]}, device="cuda")
+    assert not getattr(guard._pending, "q", None)
+    gc.collect()
+    assert not [c for c in gc.get_objects() if isinstance(c, ProgramCache)
+                and any(k[0] == "grid" for k in c._programs)]
 
 
 @pytest.mark.gpu

@@ -8,9 +8,10 @@ hold it, and against the JAX engine's response on the same pars and
 TOAs), no program build across mixed sizes in a bucket, the WLS refusal,
 typed deadline shedding, stalls that shed and never hang, rejection after
 close.  Port-only cases: the engine defaults to the card and raises
-without one, refuses what is not ported (jobs, appends, streams, gangs,
-the warm ledger) naming ROADMAP A12c, and ``pint_tpu_torch.serve`` imports
-neither JAX nor the JAX package.  One reference subprocess builds the
+without one, refuses what is not ported (gangs and the elastic
+repartitioner, the multi-card half of the fleet) naming its ROADMAP
+label, serves the one-card half (jobs, appends, streams, the warm ledger),
+and ``pint_tpu_torch.serve`` imports neither JAX nor the JAX package.  One reference subprocess builds the
 pulsars, serves them through the JAX engine and exports the TOA tables
 and responses.  Every wait is bounded.
 """
@@ -51,6 +52,7 @@ from pint_tpu_torch.serve import (  # noqa: E402
 from pint_tpu_torch.serve.batcher import capacity_for  # noqa: E402
 from pint_tpu_torch.serve.session import SessionCache  # noqa: E402
 from pint_tpu_torch.simulation import make_test_pulsar  # noqa: E402
+from pint_tpu_torch.toas.bundle import take_rows  # noqa: E402
 
 PAR = """
 PSR              J0000+00{i:02d}
@@ -376,22 +378,40 @@ def test_engine_defaults_to_the_card():
 
 @pytest.mark.parametrize("kw", [dict(gangs=2), dict(gang_size=2),
                                 dict(gang_threshold=4096),
-                                dict(warm_ledger="ledger.json"),
+                                dict(gangs=1, gang_size=2),
                                 dict(elastic=True)])
 def test_unported_engine_arguments_name_a12c(kw):
-    with pytest.raises(PintTpuError, match="ROADMAP A12c"):
+    """Gang executors and the elastic repartitioner, A12c's multi-card
+    half, are refused naming the ROADMAP item that ports them (A12d, the
+    item after A8's meshes)."""
+    with pytest.raises(PintTpuError, match="ROADMAP A12d"):
         TimingEngine(device="cpu", **kw)
 
 
-def test_unported_requests_name_a12c(engine, pulsars):
+def test_unported_requests_name_a12c(engine, pulsars, tmp_path):
+    """What A12c's one-card half ports is no longer refused: a job, a
+    stream and an append serve, and ``warm_ledger=`` keeps a ledger."""
     par, toas = pulsars[0]
-    for req in (JobRequest(par=par, toas=toas,
-                           grid={"F0": np.array([1.0])}),
-                AppendRequest(par=par, toas=toas, state={"G": 0})):
-        with pytest.raises(PintTpuError, match="ROADMAP A12c"):
-            engine.submit(req).result(timeout=10)
-    with pytest.raises(PintTpuError, match="ROADMAP A12c"):
-        engine.open_stream(par, toas)
+    r0 = engine.submit(ResidualsRequest(par=par, toas=toas)).result(
+        timeout=120)
+    f0 = float(par.split("F0")[1].split()[0])
+    job = engine.submit(JobRequest(
+        par=par, toas=toas, grid={"F0": [f0, f0 + 1e-10]})).result(
+            timeout=120)
+    assert job.result["chi2"].shape == (2,)
+    assert np.isfinite(job.result["chi2"]).all()
+    n = r0.ntoa
+    s = engine.open_stream(par, take_rows(toas, np.arange(n - 8)))
+    try:
+        r = s.append(take_rows(toas, np.arange(n - 8, n))).result(
+            timeout=120)
+        assert r.refit == "incremental" and r.ntoa == n
+    finally:
+        s.close()
+    assert AppendRequest.op == "append"
+    lp = str(tmp_path / "ledger.json")
+    with TimingEngine(device="cpu", warm_ledger=lp) as eng:
+        assert eng._ledger is not None and eng._ledger.path == lp
 
 
 def test_serve_imports_neither_jax_nor_the_jax_package():
@@ -405,6 +425,9 @@ def test_serve_imports_neither_jax_nor_the_jax_package():
     builtins.__import__ = guard
     import pint_tpu_torch.serve
     import pint_tpu_torch.serve.fabric
+    import pint_tpu_torch.serve.jobs
+    import pint_tpu_torch.serve.stream
+    import pint_tpu_torch.serve.warm_ledger
     barred = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "pint_tpu")]
     print(barred)

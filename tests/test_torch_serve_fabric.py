@@ -56,6 +56,7 @@ from pint_tpu_torch.serve.fabric import (  # noqa: E402
     LIVE,
     QUARANTINED,
     BatchWork,
+    FusedBatch,
     Replica,
     ReplicaPool,
     Router,
@@ -232,11 +233,13 @@ def test_router_skips_quarantined_and_excluded():
     assert router.route(w) is None
 
 
-def test_router_cold_placement_is_least_loaded_at_small_buckets():
-    """A new group lands on the least-loaded replica whatever its bucket:
-    small groups are not piled onto the replica that holds the most of
-    them (that colocation serves a cross-key fuser the port does not
-    have yet)."""
+def test_router_cold_placement_is_least_loaded_at_small_buckets(
+        monkeypatch):
+    """With cross-key fusion off, a new group lands on the least-loaded
+    replica whatever its bucket: small groups are not piled onto the
+    replica that holds the most of them (that colocation serves the
+    fuser, ``test_router_colocates_small_groups_for_fusion``)."""
+    monkeypatch.setenv("PINT_TPU_SERVE_XKEY_FUSE", "0")
     reps = [FakeReplica(0), FakeReplica(1)]
     router = Router(FakePool(reps))
     first = types.SimpleNamespace(key=("fit", "a", 64), live=[1])
@@ -245,6 +248,26 @@ def test_router_cold_placement_is_least_loaded_at_small_buckets():
     reps[0].outstanding = 1
     assert router.route(second).rid == 1
     assert router.stats() == {"groups": 2, "placement_widths": [1, 1]}
+
+
+def test_router_colocates_small_groups_for_fusion():
+    """Fusion on: a cold SMALL group prefers the replica already holding
+    other small groups (the fuser merges only co-resident batches); a big
+    group keeps the least-loaded placement."""
+    reps = [FakeReplica(0), FakeReplica(1)]
+    router = Router(FakePool(reps))
+    assert router.xkey_fuse and router.xkey_threshold == 4096
+    first = types.SimpleNamespace(key=("fit", "a", 64), live=[1])
+    second = types.SimpleNamespace(key=("fit", "b", 64), live=[1])
+    big = types.SimpleNamespace(key=("fit", "c", 8192), live=[1])
+    assert router.route(first).rid == 0
+    reps[0].outstanding = 1
+    assert router.route(second).rid == 0
+    assert router.route(big).rid == 1
+    # the background quanta of the job scheduler count as load
+    reps[0].outstanding, reps[1].background = 0, 2
+    third = types.SimpleNamespace(key=("fit", "d", 8192), live=[1])
+    assert router.route(third).rid == 0
 
 
 def test_router_round_robins_among_tied_placed_replicas():
@@ -493,6 +516,9 @@ def _bare_replica():
     r._kernels = {}
     r._coalesce_on = True
     r._overlap_on = True
+    r._xkey_on = True
+    r._xkey_threshold = 4096
+    r._xkey_max = 4
     r._outstanding = 0
     r._g_out = obs_metrics.gauge("serve.replica.test.outstanding")
     return r
@@ -565,6 +591,272 @@ def test_coalesce_merges_queued_same_key_batches(pulsars):
             assert r.chi2 == warm.chi2
         assert obs_metrics.counter("compile.traces").value == traces0
         assert eng.stats()["fabric"]["coalesced"] >= 1
+    finally:
+        eng.close(timeout=60)
+
+
+# -- cross-key fused dispatches ------------------------------------------------
+def test_xkey_fuse_policy_gates():
+    """Unit-level fusion policy: distinct built identities fuse, members
+    keep their _outstanding units; cold members, no_fuse retries,
+    same-key neighbours, big buckets and the member cap all leave the
+    queue untouched."""
+    key_a = ("residuals", "compA", 64, True)
+    key_b = ("residuals", "compB", 64, True)
+    r = _bare_replica()
+    head = _mk_work(key_a, 2, 2, base=0)
+    r._queue.append(_mk_work(key_b, 1, 1, base=10))
+    r._outstanding = 2
+    # neither the combo nor the members' solo programs built: no fuse
+    assert r._fuse(head) is head
+    assert len(r._queue) == 1
+    r._kernels[(key_a, 2)] = lambda *a: None
+    r._kernels[(key_b, 1)] = lambda *a: None
+    fused = r._fuse(head)
+    assert isinstance(fused, FusedBatch)
+    assert {w.key for w in fused.members} == {key_a, key_b}
+    assert not r._queue
+    # members keep INDIVIDUAL outstanding units (each fences its own
+    # _batch_leaves at de-multiplex — unlike the coalescer's merge)
+    assert r._outstanding == 2
+    idents = tuple(w.kernel_key() for w in fused.members)
+    assert idents == tuple(sorted(idents, key=repr))
+    assert fused.combo == ("xkey",) + idents
+    # a fused-failure retry (no_fuse) never fuses again
+    head2 = _mk_work(key_a, 2, 2, base=0)
+    head2.no_fuse = True
+    r._queue.append(_mk_work(key_b, 1, 1, base=20))
+    assert r._fuse(head2) is head2
+    assert len(r._queue) == 1
+    # same-identity neighbours are the coalescer's business
+    r._queue.clear()
+    r._queue.append(_mk_work(key_a, 1, 2, base=30))
+    head3 = _mk_work(key_a, 2, 2, base=0)
+    assert r._fuse(head3) is head3
+    assert len(r._queue) == 1
+    # big buckets never fuse (bucket is key[2])
+    big = ("residuals", "compC", 8192, True)
+    r._queue.clear()
+    r._queue.append(_mk_work(key_b, 1, 1, base=40))
+    r._kernels[(big, 1)] = lambda *a: None
+    bighead = _mk_work(big, 1, 1, base=50)
+    assert r._fuse(bighead) is bighead
+    # the member cap bounds a combo's width
+    r._xkey_max = 2
+    key_c = ("residuals", "compC2", 64, True)
+    r._kernels[(key_c, 1)] = lambda *a: None
+    r._queue.clear()
+    r._queue.append(_mk_work(key_b, 1, 1, base=60))
+    r._queue.append(_mk_work(key_c, 1, 1, base=70))
+    fused2 = r._fuse(_mk_work(key_a, 2, 2, base=80))
+    assert isinstance(fused2, FusedBatch)
+    assert len(fused2.members) == 2
+    assert len(r._queue) == 1
+    # the hatch restores pass-through
+    r._xkey_on = False
+    r._queue.append(_mk_work(key_b, 1, 1, base=90))
+    head4 = _mk_work(key_a, 2, 2, base=100)
+    assert r._fuse(head4) is head4
+
+
+def test_xkey_fuse_disabled_by_env(monkeypatch):
+    monkeypatch.setenv("PINT_TPU_SERVE_XKEY_FUSE", "0")
+    monkeypatch.setenv("PINT_TPU_SERVE_OVERLAP", "0")
+    eng = TimingEngine(device="cpu", max_batch=2, max_wait_ms=1.0,
+                       replicas=1)
+    try:
+        assert all(not rep._xkey_on and not rep._overlap_on
+                   for rep in eng.pool.replicas)
+        w = _mk_work(("residuals", "comp", 64, True), 1, 1, base=0)
+        assert eng.pool.replica(0)._fuse(w) is w
+        assert not eng.router.xkey_fuse
+    finally:
+        eng.close(timeout=60)
+
+
+def _fused_round(eng, residuals, fit, extra=()):
+    """Stall the first residuals dispatch so that the next residuals
+    batch and the fit batch sit together in r0's queue when the
+    dispatcher wakes."""
+    with faults.inject("hang:1@serve:residuals", hang_seconds=1.5):
+        first = residuals()
+        time.sleep(0.3)
+        futs = [first, residuals(), fit(), *[f() for f in extra]]
+        time.sleep(0.1)
+        return futs
+
+
+def test_xkey_fuse_bitwise_parity_and_zero_steady_builds(pulsars, ref):
+    """A residuals batch and a fit batch of DIFFERENT group keys,
+    co-resident behind a stalled dispatch, serve as ONE fused program:
+    the xkey counter moves, every response is bitwise its solo warm-up's
+    (and at the JAX engine's responses), and the SECOND fused round (the
+    combo built) builds nothing."""
+    eng = TimingEngine(device="cpu", max_batch=4, max_wait_ms=40.0,
+                       inflight=8, replicas=1, max_queue=64)
+    try:
+        par_r, toas_r = pulsars[1]
+        par_f, toas_f = pulsars[2]
+
+        def residuals():
+            return eng.submit(ResidualsRequest(par=par_r, toas=toas_r))
+
+        def fit():
+            return eng.submit(FitRequest(par=par_f, toas=toas_f,
+                                         maxiter=2))
+
+        warm_r = residuals().result(timeout=120)
+        warm_f = fit().result(timeout=120)
+        fused0 = obs_metrics.counter("serve.fabric.xkey_fused").value
+        out1 = [f.result(timeout=120) for f in _fused_round(
+            eng, residuals, fit)]
+        assert (obs_metrics.counter("serve.fabric.xkey_fused").value
+                > fused0)
+        traces0 = obs_metrics.counter("compile.traces").value
+        retraces0 = obs_metrics.counter("compile.recompiles").value
+        out2 = [f.result(timeout=120) for f in _fused_round(
+            eng, residuals, fit)]
+        assert obs_metrics.counter("compile.traces").value == traces0
+        assert (obs_metrics.counter("compile.recompiles").value
+                == retraces0)
+        for out in (out1, out2):
+            for r in out[:2]:
+                np.testing.assert_array_equal(r.residuals_s,
+                                              warm_r.residuals_s)
+                assert r.chi2 == warm_r.chi2
+            f = out[2]
+            np.testing.assert_array_equal(f.deltas, warm_f.deltas)
+            np.testing.assert_array_equal(f.uncertainties,
+                                          warm_f.uncertainties)
+            assert f.chi2 == warm_f.chi2
+            assert f.fitted_par == warm_f.fitted_par
+        # the JAX engine's solo responses for the same pars (WAVES: s1 is
+        # pulsar 1's residuals, s5 pulsar 2's fit)
+        np.testing.assert_allclose(warm_r.residuals_s, ref["s1/res"],
+                                   rtol=1e-9, atol=1e-15)
+        assert warm_f.chi2 == pytest.approx(float(ref["s5/chi2"]),
+                                            rel=1e-6)
+        np.testing.assert_allclose(warm_f.uncertainties, ref["s5/unc"],
+                                   rtol=1e-5)
+    finally:
+        eng.close(timeout=60)
+
+
+def test_xkey_fused_failure_degrades_to_solo(pulsars):
+    """A NaN injected at the fused site fails typed, marks the members
+    no_fuse, and their re-routed solo retries still serve — the fused
+    overlay never wedges work that succeeds unfused."""
+    eng = TimingEngine(device="cpu", max_batch=4, max_wait_ms=40.0,
+                       inflight=8, replicas=2, quarantine_n=10,
+                       max_queue=64)
+    try:
+        par_r, toas_r = pulsars[1]
+        par_f, toas_f = pulsars[2]
+        warm_r = eng.submit(ResidualsRequest(par=par_r, toas=toas_r)
+                            ).result(timeout=120)
+        warm_f = eng.submit(FitRequest(par=par_f, toas=toas_f, maxiter=2)
+                            ).result(timeout=120)
+        f0 = obs_metrics.counter("serve.fabric.xkey_fused").value
+        with faults.inject("nan:inf@serve:xkey"):
+            out = [f.result(timeout=120) for f in _fused_round(
+                eng,
+                lambda: eng.submit(ResidualsRequest(par=par_r,
+                                                    toas=toas_r)),
+                lambda: eng.submit(FitRequest(par=par_f, toas=toas_f,
+                                              maxiter=2)))]
+        assert obs_metrics.counter("serve.fabric.xkey_fused").value > f0
+        np.testing.assert_array_equal(out[1].residuals_s,
+                                      warm_r.residuals_s)
+        np.testing.assert_array_equal(out[2].deltas, warm_f.deltas)
+    finally:
+        eng.close(timeout=60)
+
+
+def test_xkey_nonfinite_member_fails_alone(pulsars):
+    """One member of a fused dispatch with a non-finite result (a fit of
+    TOAs one of whose uncertainties is NaN): only that member's future
+    fails, typed; the other member of the same fused program resolves,
+    bitwise solo."""
+    eng = TimingEngine(device="cpu", max_batch=4, max_wait_ms=40.0,
+                       inflight=8, replicas=1, quarantine_n=10,
+                       max_queue=64)
+    try:
+        par_r, toas_r = pulsars[1]
+        par_f, toas_f = pulsars[2]
+        warm_r = eng.submit(ResidualsRequest(par=par_r, toas=toas_r)
+                            ).result(timeout=120)
+        eng.submit(FitRequest(par=par_f, toas=toas_f, maxiter=2)
+                   ).result(timeout=120)
+        bad = dict(toas_f, error_us=np.array(toas_f["error_us"]))
+        bad["error_us"][0] = np.nan
+        f0 = obs_metrics.counter("serve.fabric.xkey_fused").value
+        futs = _fused_round(
+            eng,
+            lambda: eng.submit(ResidualsRequest(par=par_r, toas=toas_r)),
+            lambda: eng.submit(FitRequest(par=par_f, toas=bad,
+                                          maxiter=2)))
+        np.testing.assert_array_equal(futs[1].result(timeout=120)
+                                      .residuals_s, warm_r.residuals_s)
+        with pytest.raises(PintTpuNumericsError):
+            futs[2].result(timeout=120)
+        assert obs_metrics.counter("serve.fabric.xkey_fused").value > f0
+    finally:
+        eng.close(timeout=60)
+
+
+def _assembled(eng, req):
+    """One request's batch through the engine's admission and stacking
+    chokepoints, not routed."""
+    from concurrent.futures import Future
+
+    from pint_tpu_torch.serve.engine import _Pending
+
+    p = _Pending(req, Future(), time.monotonic())
+    rec, sess, padded, ntoa = eng._session_for_request(req)
+    p.record, p.session, p.bundle, p.ntoa = rec, sess, padded, ntoa
+    if req.op == "fit":
+        key = ("fit", sess.composition, sess.bucket, sess.mode,
+               int(req.maxiter), 1e-10 if sess.mode == "f64" else 3e-6)
+    else:
+        key = ("residuals", sess.composition, sess.bucket, True)
+    return eng._assemble(key, [p])
+
+
+def test_prewarm_fused_builds_the_combo_before_traffic(pulsars):
+    """``Replica.prewarm_fused`` builds a combo's fused program off its
+    members' built solo programs, so the first fused round of that combo
+    builds nothing."""
+    eng = TimingEngine(device="cpu", max_batch=4, max_wait_ms=40.0,
+                       inflight=8, replicas=1, max_queue=64)
+    try:
+        par_r, toas_r = pulsars[1]
+        par_f, toas_f = pulsars[2]
+
+        def residuals():
+            return eng.submit(ResidualsRequest(par=par_r, toas=toas_r))
+
+        def fit():
+            return eng.submit(FitRequest(par=par_f, toas=toas_f,
+                                         maxiter=2))
+
+        residuals().result(timeout=120)
+        fit().result(timeout=120)
+        rep = eng.pool.replica(0)
+        works = [_assembled(eng, ResidualsRequest(par=par_r,
+                                                  toas=toas_r)),
+                 _assembled(eng, FitRequest(par=par_f, toas=toas_f,
+                                            maxiter=2))]
+        assert not rep.prewarm_fused(works[:1])  # one member: nothing
+        traces0 = obs_metrics.counter("compile.traces").value
+        assert rep.prewarm_fused(works)
+        assert obs_metrics.counter("compile.traces").value == traces0 + 1
+        f0 = obs_metrics.counter("serve.fabric.xkey_fused").value
+        traces0 = obs_metrics.counter("compile.traces").value
+        out = [f.result(timeout=120) for f in _fused_round(
+            eng, residuals, fit)]
+        assert obs_metrics.counter("serve.fabric.xkey_fused").value > f0
+        assert obs_metrics.counter("compile.traces").value == traces0
+        assert all(np.isfinite(r.chi2) for r in out)
     finally:
         eng.close(timeout=60)
 
@@ -729,3 +1021,47 @@ def test_card_wedged_kernel_seen_at_the_fence():
         after = eng.submit(ResidualsRequest(par=par, toas=toas)).result(
             timeout=300)
         np.testing.assert_array_equal(after.residuals_s, first.residuals_s)
+
+
+@pytest.mark.gpu
+def test_card_fused_capture_is_bitwise_solo():
+    """On the card: a residuals batch and a fit batch of different keys,
+    co-resident behind a stalled dispatch (the hang fires as a spinning
+    kernel and on the dispatcher's host thread), run as ONE captured
+    fused program — bitwise the same batches dispatched solo — and a
+    second fused round captures nothing."""
+    dev = _card()
+    ps = _card_pulsars()
+    with TimingEngine(device=dev, replicas=1, max_batch=4,
+                      max_wait_ms=40.0, inflight=4, max_queue=64,
+                      probe_ms=60_000) as eng:
+        rep = eng.pool.replicas[0]
+        (par_r, toas_r), (par_f, toas_f) = ps[1], ps[2]
+
+        def residuals():
+            return eng.submit(ResidualsRequest(par=par_r, toas=toas_r))
+
+        def fit():
+            return eng.submit(FitRequest(par=par_f, toas=toas_f,
+                                         maxiter=2))
+
+        def fused_round():
+            with faults.inject("hang:2@serve:residuals", hang_seconds=1.0):
+                first = residuals()
+                time.sleep(0.3)
+                futs = [first, residuals(), fit()]
+                return [f.result(timeout=300) for f in futs]
+
+        solo_r = residuals().result(timeout=300)
+        solo_f = fit().result(timeout=300)
+        f0 = obs_metrics.counter("serve.fabric.xkey_fused").value
+        out1 = fused_round()
+        assert obs_metrics.counter("serve.fabric.xkey_fused").value > f0
+        caps = rep.programs.captures
+        out2 = fused_round()
+        assert rep.programs.captures == caps
+        for out in (out1, out2):
+            np.testing.assert_array_equal(out[1].residuals_s,
+                                          solo_r.residuals_s)
+            np.testing.assert_array_equal(out[2].deltas, solo_f.deltas)
+            assert out[2].chi2 == solo_f.chi2
