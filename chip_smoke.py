@@ -367,6 +367,35 @@ Phases, each of which raises on failure (exit code != 0):
    phase's trace.  Printed: each rank's peak memory, the group's start
    s, the serving, fault and reshape times, each labelled "2 ranks on
    one card through gloo: not a multi-card figure".
+21. the reference's NANOGrav configurations, BASELINE.json configs 2
+   and 3 (``nanograv_phase``), each built by ``ModelBuilder`` and
+   simulated on the card in observing sessions (TOAs 1 s apart
+   alternating between four L-wide and four S-wide sub-bands, the orbit
+   inside the phases): config 2, ``j1713_par(100)`` (DD binary with
+   eight free orbital parameters, FD1-FD3, a JUMP, EFAC/EQUAD/ECORR on
+   both receivers, 30-harmonic red noise) at 10,000 TOAs in 125
+   sessions, joint Gram (1e4, 310, 121); config 3, ``b1855_par(100)``
+   (the binary MSP with ECORR on both receivers) at 8192 TOAs in 128
+   sessions, (8192, 316, 119): both on the wide path.  On each
+   configuration's own operands the wide kernel against its plain
+   version (T in f64 and f32; 3e-6 of scale, bitwise on rerun) and timed
+   beside its bound and the f64 GEMM; the mixed step at the step gates
+   of the f64 step, or for config 2 NaN-poisoned by the refinement check
+   (as the reference's is).  Config 2 through ``auto_fitter``: a
+   ``DownhillGLSFitter`` launching the wide kernel, served by its native
+   rung or, after the numerics guard refused that rung alone, by the
+   f64 rung.  Config 3 by ``GLSFitter``: the Woodbury step on its native
+   rung (the wide kernel launched) and on the f64 rung, the dense step
+   (``full_cov=True``) on both (no launch), the f64 Woodbury fit within
+   1e-6 sigma, chi2 1e-8 and uncertainties 1e-6 of the f64 dense fit.
+   Each fit prints its rung, steps, host s, one step's CUDA-event ms,
+   launches and peak allocation.  The 2048-TOA copies (24 DMX ranges, 32
+   sessions of 64) card vs CPU: config 3's residuals within 1e-11 s and
+   f64 step within 1e-8; config 2's residuals within 1e-11 s and its
+   f64 step, in sigma, within 10 times the CPU's own spread under
+   reordered TOAs (``sigma_gap``: DD's OM and T0 at e = 7.5e-5 leave
+   that system too ill-conditioned for any two summation orders to meet
+   1e-8).
 
 Every fit above runs its steps as replays of step programs
 (``runtime/graphs.py``: CUDA graphs captured once, after one eager
@@ -410,7 +439,9 @@ under ``fleet`` phase 18's results and under ``stream_launches``,
 ``fused_launches`` and ``restart_launches`` its counted launches, under
 ``parallel`` phase 19's results and under ``parallel_launches`` its
 ranks' counted launches, under ``gang`` phase 20's results and under
-``gang_launches`` each gang rank's counted launches),
+``gang_launches`` each gang rank's counted launches, under ``nanograv``
+phase 21's results and under ``nanograv_launches`` each of its fits'
+wide launches),
 nvidia-smi's name and
 power limit, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -500,8 +531,15 @@ from pint_tpu_torch.parallel.dense import (  # noqa: E402
 )
 from pint_tpu_torch.parallel.pta import PTABatch  # noqa: E402
 from pint_tpu_torch.runtime import graphs  # noqa: E402
+from pint_tpu_torch.models.builder import ModelBuilder  # noqa: E402
 from pint_tpu_torch.simulation import (  # noqa: E402
+    J1713_SPAN,
     MSP_FREQS,
+    MSP_SPAN,
+    NANOGRAV_FREQS,
+    b1855_par,
+    epoch_mjds,
+    j1713_par,
     make_test_pulsar,
     msp_full_par,
     msp_par,
@@ -892,9 +930,10 @@ def drive(path, make_fitter, label="bench"):
     return fitter, launches
 
 
-def step_gates(name, got, want, ntoa=NTOA):
+def step_gates(name, got, want, ntoa=NTOA, gate=True):
     """A step against the f64 step from the same x, at the reference's
-    step gates; uncertainties and the worst dx gap in sigma printed."""
+    step gates; uncertainties and the worst dx gap in sigma printed.
+    ``gate=False`` measures and prints without the gates."""
     (dx_m, (cov_m, _), chi_m, _), (dx_f, (cov_f, norm), chi_f, _) = got, want
     sig_m = torch.sqrt(torch.diagonal(cov_m))
     sig_f = torch.sqrt(torch.diagonal(cov_f))
@@ -905,7 +944,7 @@ def step_gates(name, got, want, ntoa=NTOA):
                  dx_gap_sigma=float(torch.max(
                      torch.abs(dx_m - dx_f) / (sig_f / norm))))
     log(f"{name} vs f64 step at {ntoa} TOAs: {gates}")
-    check(gates["dx_rel"] <= 2e-3 and gates["chi2_rel"] <= 1e-3
+    check(not gate or gates["dx_rel"] <= 2e-3 and gates["chi2_rel"] <= 1e-3
           and gates["cov_rel"] <= 5e-3, f"{name} step outside gates {gates}")
     return gates
 
@@ -1192,7 +1231,7 @@ def card_vs_cpu(label, par, ntoa, sim, fourier=True):
     return dict(resid_s=dres, f64_step_rel=dstep, fourier_dx_rel=fdx)
 
 
-def sigma_gap(label, par, ntoa, sim):
+def sigma_gap(label, par, ntoa, sim, ordering_bound=False):
     """The card's f64 step against the CPU's on a small copy of a pulsar,
     in units of each parameter's sigma (the CPU step's), printed for every
     parameter, with the CPU's yardsticks from the same run
@@ -1201,9 +1240,12 @@ def sigma_gap(label, par, ntoa, sim):
     residual (rounding of the delays).  Gated (ROADMAP C R4): the card's
     step from the CPU's residuals within 10 times the largest ordering
     gap — past the residuals, the card differs by summation order only —
-    and the card's whole step within the smallest rounding gap.  -> the
-    largest gap, its parameter, the gap relative to the step's largest
-    component, the residuals' largest difference and the yardsticks."""
+    and the card's whole step within the smallest rounding gap, or with
+    ``ordering_bound`` (a system so ill-conditioned that summation order
+    moves the CPU's own step past its rounding gap) within 10 times the
+    largest ordering gap too.  -> the largest gap, its parameter, the gap
+    relative to the step's largest component, the residuals' largest
+    difference and the yardsticks."""
     m, t = make_test_pulsar(par, ntoa=ntoa, device="cpu", **{**SIM, **sim})
     host, card = m.compile(t, device="cpu"), m.compile(t, device="cuda")
     dx_c, sig, names = f64_step(host)
@@ -1231,9 +1273,10 @@ def sigma_gap(label, par, ntoa, sim):
     check(past_r <= 10 * max(order),
           f"{label}: past the residuals the card's step is {past_r} sigma "
           f"off the CPU's, over 10x the ordering gap {max(order)}")
-    check(out["max_gap_sigma"] <= min(rounding),
+    limit = 10 * max(order) if ordering_bound else min(rounding)
+    check(out["max_gap_sigma"] <= limit,
           f"{label}: the card's step is {out['max_gap_sigma']} sigma off the "
-          f"CPU's, over the one-ulp rounding gap {min(rounding)}")
+          f"CPU's, over {limit} (ordering_bound={ordering_bound})")
     return out
 
 
@@ -5555,6 +5598,236 @@ def gang_phase(dev):
     return out
 
 
+#: BASELINE.json configs 2 and 3, the reference's NANOGrav
+#: configurations: par text, span (MJD), observing epochs and TOAs an epoch
+#: (two ECORR columns an epoch and 60 red-noise columns)
+NANOGRAV = {
+    "j1713": dict(par=j1713_par, span=J1713_SPAN, nepoch=125, per_epoch=80),
+    "b1855": dict(par=b1855_par, span=MSP_SPAN, nepoch=128, per_epoch=64),
+}
+NANOGRAV_NDMX = 100
+#: the 2048-TOA copies held against the CPU: 24 DMX ranges, so that every
+#: range holds one of the 32 epochs
+NANOGRAV_SMALL = dict(ndmx=24, nepoch=32, per_epoch=64)
+
+
+def nanograv_inputs(name, ndmx, nepoch, per_epoch):
+    """(par text, make_test_pulsar keywords) of a NANOGrav configuration:
+    TOAs 1 s apart in each epoch alternating between the receivers'
+    sub-bands, the synthetic orbit inside the simulated phases."""
+    cfg = NANOGRAV[name]
+    span = cfg["span"]
+    return cfg["par"](ndmx), dict(
+        mjds=epoch_mjds(nepoch, per_epoch, *span), start_mjd=span[0],
+        end_mjd=span[1], seed=0, iterations=1, orbit=True,
+        orbit_in_phase=True, freqs=NANOGRAV_FREQS)
+
+
+def nanograv_fit(label, path, make):
+    """``drive`` (counts zeroed just before the fit and read just after,
+    its rung, launches and step programs checked), then the fit's host
+    seconds, its peak allocation and one eager step's CUDA-event ms at
+    the fitted state.  -> (fitter, summary)."""
+    t0 = time.perf_counter()
+    f, launches = drive(path, make, label)
+    out = dict(rung=f.guard_report.rung, steps=f.steps_taken, chi2=f.chi2,
+               host_s=time.perf_counter() - t0, launches=launches,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    x = f.cm.x0()
+    out["step_cuda_ms"] = cuda_ms(lambda: f._gn_step(x, f.mode), reps=5,
+                                  warm=1, batch=1)
+    log(f"{label} {path} fit: {out}")
+    return f, out
+
+
+def nanograv_downhill(label, make):
+    """Config 2's fit through the default entry point: a
+    ``DownhillGLSFitter``, its launch counts at 0 just before the fit and
+    read just after, ``fused_gram_joint`` launched on the wide path.  It
+    is served by the native rung, or by the f64 rung after the native
+    rung's result was refused by the numerics guard alone (the mixed
+    step's refinement check NaN-poisons an ill-conditioned noise
+    system, as the reference's does with its check armed).  Prints the
+    iterations, chi2, the rung and its history, the host seconds, the
+    peak allocation and one proposal's CUDA-event ms at the fitted state
+    (the serving rung's proposal).  -> (fitter, summary)."""
+    f = make()
+    check(type(f) is DownhillGLSFitter,
+          f"{label}: auto_fitter gave {type(f).__name__}")
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    chi2 = f.fit_toas()
+    torch.cuda.synchronize()
+    rep = f.guard_report
+    out = dict(niter=f.niter, converged=f.converged, chi2=chi2,
+               rung=rep.rung, history=[list(h) for h in rep.history],
+               host_s=time.perf_counter() - t0, launches=read_counts(),
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    x = f.cm.x0()
+    # the serving rung's proposal
+    proposal = f._make_proposal(force_f64=rep.fell_back)
+    out["proposal_cuda_ms"] = cuda_ms(lambda: proposal(x), reps=5, warm=1,
+                                      batch=1)
+    log(f"{label} DownhillGLSFitter: {out}")
+    check(math.isfinite(chi2), f"{label}: non-finite chi2")
+    check((rep.rung == "native" and not rep.fell_back)
+          or (rep.rung == "f64-fallback" and len(rep.history) == 1
+              and rep.history[0][0] == "native"
+              and rep.history[0][1].startswith("PintTpuNumericsError")),
+          f"{label}: served by rung {rep.rung}: {rep.history}")
+    n_gram = out["launches"]["fused_gram_joint"]
+    check(n_gram > 0 and out["launches"]["fused_gram_joint wide"] == n_gram,
+          f"{label}: fused_gram_joint launched {out['launches']}")
+    return f, out
+
+
+def nanograv_config(dev, name):
+    """One NANOGrav configuration at full size on the card: its widths
+    (the joint Gram on the wide path of fused_block_table), the wide
+    kernel against its plain version on the configuration's own operands
+    and timed beside its bound, the mixed step at the step gates of the
+    f64 step, and its fits.  -> (summary, the fitters by route)."""
+    cfg = NANOGRAV[name]
+    par, sim = nanograv_inputs(name, NANOGRAV_NDMX, cfg["nepoch"],
+                               cfg["per_epoch"])
+    ntoa = cfg["nepoch"] * cfg["per_epoch"]
+    t0 = time.perf_counter()
+    _, toas = make_test_pulsar(par, device=dev, **sim)
+    out = dict(ntoa=ntoa, simulate_s=time.perf_counter() - t0)
+    cm = ModelBuilder()(par).compile(toas, device=dev)
+    x = cm.x0()
+    T, A, w = gram_inputs(cm, x)
+    n, k = T.shape
+    p1 = A.shape[1]
+    out["shape"] = [n, k, p1]
+    check(n == ntoa and k == 2 * cfg["nepoch"] + 60
+          and fused_gram.fused_block_table(n, k, p1) is not None
+          and k + p1 > fused_gram.Q_MAX,
+          f"{name}: joint Gram (n, k, p1) = {(n, k, p1)} is not on the wide "
+          "path of the kernel's table")
+    fj = (fused_gram.fused_gram_joint_cuda, fused_gram.fused_gram_joint_plain)
+    errs = [kernel_vs_plain("fused_gram_joint", *fj, T, A, w),
+            kernel_vs_plain("fused_gram_joint", *fj, T.float(), A, w)]
+    out["max_abs_err"] = max(e[0] for e in errs)
+    out["max_err_vs_plain"] = max(e[1] for e in errs)
+    Yd = (torch.cat([T.float(), A.float()], dim=1)
+          * torch.sqrt(w).float()[:, None]).double().contiguous()
+    times = time_kernel(lambda: fused_gram.fused_gram_joint_cuda(T, A, w),
+                        lambda: fused_gram.fused_gram_joint_plain(T, A, w),
+                        lambda: torch.matmul(Yd.T, Yd))
+    del times["device_parts"], Yd
+    out["kernel"] = dict(times, bound=gram_bound(T, A, w))
+    # the mixed step at the step gates of the f64 step; config 2's may
+    # instead be NaN-poisoned by the refinement check (the reference's
+    # is, with its check armed): then the fit's native rung is refused
+    # the same way and the f64 rung serves (nanograv_downhill)
+    args = step_inputs(cm, x)
+    mixed = gls_step_woodbury_mixed(*args, normalized_cov=True)
+    poisoned = name == "j1713" and not math.isfinite(float(mixed[2]))
+    gates = step_gates(
+        f"{name} mixed", mixed, gls_step_woodbury(*args, normalized_cov=True),
+        ntoa=ntoa, gate=not poisoned)
+    # (NaN is no JSON value: the kernels line records the poisoning)
+    out["mixed_vs_f64"] = "NaN-poisoned" if poisoned else gates
+    del cm, args, T, A, w, mixed, gates
+    log(f"{name}: {ntoa} TOAs, joint Gram (n, k, p1) = {out['shape']}, "
+        f"wide kernel vs plain (T f64, f32) {errs}, timed {out['kernel']}")
+    fits = {}
+    if name == "j1713":
+        f, fits["downhill"] = nanograv_downhill(
+            f"{name} auto_fitter", lambda: auto_fitter(
+                toas, ModelBuilder()(par), device=dev))
+        fitters = {"downhill": f}
+    else:
+        fitters = {}
+        for key, path, full, fused in (
+                ("woodbury native", "mixed", False, "auto"),
+                ("woodbury f64", "f64", False, False),
+                ("dense native", "full_cov", True, "auto"),
+                ("dense f64", "full_cov", True, False)):
+            fitters[key], fits[key] = nanograv_fit(
+                f"{name} {key}", path,
+                lambda full=full, fused=fused: GLSFitter(
+                    toas, ModelBuilder()(par), full_cov=full, fused=fused,
+                    device=dev))
+        check(fits["woodbury native"]["launches"]["fused_gram_joint wide"]
+              == fits["woodbury native"]["launches"]["fused_gram_joint"] > 0,
+              f"{name}: the Woodbury fit's joint Gram left the wide path")
+        # the native (mixed) fit beside the f64 fit, in sigma: measured
+        fn, ff = fitters["woodbury native"], fitters["woodbury f64"]
+        names = list(ff.cm.free_names)
+        gaps = value_gaps(fn.model, ff.model, names, [
+            ff.model.params[n].internal_uncertainty() for n in names])
+        worst = max(gaps, key=gaps.get)
+        out["native_vs_f64_fit"] = dict(
+            max_gap_sigma=gaps[worst], worst=worst,
+            chi2_rel=abs(fn.chi2 / ff.chi2 - 1))
+        log(f"{name}: native (mixed) Woodbury fit vs f64 Woodbury fit: "
+            f"{out['native_vs_f64_fit']}")
+    out["fits"] = fits
+    small_par, small_sim = nanograv_inputs(name, **NANOGRAV_SMALL)
+    if name == "b1855":
+        out["card_vs_cpu"] = card_vs_cpu(
+            f"{name} copy", small_par, 2048, small_sim, fourier=False)
+    else:
+        # DD's OM and T0 at e = 7.5e-5 make config 2's normal equations so
+        # ill-conditioned that reordering the TOAs moves the CPU's own
+        # f64 step by ~1e-2 sigma on the copy (PERF.md): no two
+        # summation orders meet 1e-8 of the step, so the card is held to
+        # the CPU's own ordering spread, in sigma (phase 6's R4 gates)
+        out["card_vs_cpu"] = sigma_gap(f"{name} copy", small_par, 2048,
+                                       small_sim, ordering_bound=True)
+        check(out["card_vs_cpu"]["resid_diff_s"] <= 1e-11,
+              f"{name} copy: card residuals differ from the CPU by "
+              f"{out['card_vs_cpu']['resid_diff_s']} s")
+    return out, fitters
+
+
+def nanograv_phase(dev):
+    """Phase 21: the reference's NANOGrav configurations (BASELINE.json
+    configs 2 and 3) at their size on the card.  Config 2
+    (``j1713_par``: DD binary, ECORR, red noise) at 10,000 TOAs in 125
+    epochs of 80 through the default entry point (``auto_fitter``:
+    downhill GLS, the joint Gram on the wide kernel at q = 430); config 3
+    (``b1855_par``: the binary MSP with ECORR) at 8192 TOAs in 128 epochs
+    of 64 by ``GLSFitter`` with the Woodbury step (the wide kernel at
+    q = 434) and with the dense covariance, each on its native rung and
+    on the f64 rung, the f64 Woodbury fit held to the f64 dense fit
+    (values within 1e-6 of sigma, chi2 1e-8, uncertainties 1e-6).  Each
+    configuration's wide kernel against its plain version on its own
+    operands, its mixed step at the step gates, and its 2048-TOA copy
+    card vs CPU.  -> what the kernels line reports."""
+    t_phase = time.perf_counter()
+    out = {}
+    for name in NANOGRAV:
+        out[name], fitters = nanograv_config(dev, name)
+        if name == "b1855":
+            fw, fd = fitters["woodbury f64"], fitters["dense f64"]
+            names = list(fw.cm.free_names)
+            sig = [fd.model.params[n].internal_uncertainty() for n in names]
+            gaps = value_gaps(fw.model, fd.model, names, sig)
+            unc = max(abs(fw.model.params[n].uncertainty
+                          / fd.model.params[n].uncertainty - 1)
+                      for n in names)
+            chi2 = abs(fw.chi2 / fd.chi2 - 1)
+            worst = max(gaps, key=gaps.get)
+            out[name]["woodbury_vs_dense_f64"] = dict(
+                max_gap_sigma=gaps[worst], worst=worst, unc_rel=unc,
+                chi2_rel=chi2)
+            log(f"{name}: f64 Woodbury fit vs f64 dense fit: "
+                f"{out[name]['woodbury_vs_dense_f64']}")
+            check(gaps[worst] <= 1e-6 and chi2 <= 1e-8 and unc <= 1e-6,
+                  f"{name}: Woodbury vs dense fit outside the gates "
+                  f"{out[name]['woodbury_vs_dense_f64']}")
+        del fitters
+        gc.collect()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"nanograv: phase 21 {out['phase_s']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5816,6 +6089,12 @@ def main():
     gang = gang_phase(dev)
     phase_memory(20)
 
+    # 21. the reference's NANOGrav configurations (BASELINE configs 2 and
+    # 3): DD + ECORR through auto_fitter at 1e4 TOAs, and red noise +
+    # ECORR by the Woodbury and the dense step at 8192 TOAs
+    nanograv = nanograv_phase(dev)
+    phase_memory(21)
+
     # the kernels line: each kernel at the binary MSP's shapes (launches
     # from its fits), and under "bench" the same numbers at bench.py's
     # pulsar (launches from its fits)
@@ -5906,6 +6185,12 @@ def main():
         k: {"first": gang[k]["launches"]["ranks"],
             "steady": gang[k]["steady"]["rank_launches"]}
         for k in ("bench", "msp")}
+    rows[0]["nanograv"] = nanograv
+    rows[0]["nanograv_launches"] = {
+        "j1713 downhill": nanograv["j1713"]["fits"]["downhill"]["launches"][
+            "fused_gram_joint wide"],
+        **{f"b1855 {k}": v["launches"]["fused_gram_joint wide"]
+           for k, v in nanograv["b1855"]["fits"].items()}}
     rows[0]["graphs"] = GRAPHS
     rows[0]["memory_after_phase"] = MEMORY
     barred = sorted(m for m in sys.modules

@@ -1,10 +1,15 @@
-"""Exception types of the port's fitters, fit ladder and host ingest.
+"""Exception types of the port.
 
-Counterpart of the subset of ``pint_tpu/exceptions.py`` that the fitters
-(``fitting/``), the device-execution guard (``runtime/guard.py``), fault
-injection (``runtime/faults.py``), the fallback ladder
-(``runtime/fallback.py``), checkpoints (``checkpoint.py``) and the ingest
-layer (clock files, ephemerides, observatories) raise, warn and catch.
+Counterpart of ``pint_tpu/exceptions.py``: every class it defines, with
+the same bases and constructor signatures, so that a caller's ``except
+TimingModelError`` or ``except MissingParameter`` catches the same errors
+from either package.  The timing-model components and the builder
+(``models/``) raise ``TimingModelError``, ``MissingParameter`` and
+``PrefixError`` where the reference does; the fitters (``fitting/``), the
+device-execution guard (``runtime/guard.py``), fault injection
+(``runtime/faults.py``), the fallback ladder (``runtime/fallback.py``),
+checkpoints (``checkpoint.py``) and the ingest layer (clock files,
+ephemerides, observatories) raise, warn and catch the rest.
 """
 
 from __future__ import annotations
@@ -14,13 +19,45 @@ class PintTpuError(Exception):
     """Base class for the port's errors."""
 
 
+class MissingParameter(PintTpuError):
+    """A required timing-model parameter is absent or unset."""
+
+    def __init__(self, module="", param="", msg=None):
+        self.module = module
+        self.param = param
+        super().__init__(msg or f"{module} is missing parameter {param}")
+
+
+class MissingTOAs(PintTpuError):
+    """A mask parameter selects no TOAs."""
+
+    def __init__(self, parameter_names=()):
+        if isinstance(parameter_names, str):
+            parameter_names = [parameter_names]
+        self.parameter_names = list(parameter_names)
+        super().__init__(f"Parameters {self.parameter_names} select no TOAs")
+
+
+class UnknownParameter(PintTpuError):
+    """Par-file line not understood by any component."""
+
+
 class TimingModelError(PintTpuError):
-    """A model cannot evaluate what was asked of it (e.g. DM residuals
-    of TOAs without wideband DM measurements)."""
+    """An ill-formed timing model (a validation failure), or a model that
+    cannot evaluate what was asked of it (e.g. DM residuals of TOAs
+    without wideband DM measurements)."""
 
 
 class ConvergenceFailure(PintTpuError):
     """A fitter failed to converge."""
+
+
+class MaxiterReached(ConvergenceFailure):
+    """Downhill fitter hit the iteration limit without meeting tolerance."""
+
+
+class StepProblem(ConvergenceFailure):
+    """Downhill fitter could not find a chi2-decreasing step."""
 
 
 class PintTpuNumericsError(ConvergenceFailure):
@@ -120,6 +157,10 @@ class ConvergenceWarning(UserWarning):
     """A fitter stopped without meeting its convergence tolerance."""
 
 
+class DegeneracyWarning(UserWarning):
+    """Design matrix is degenerate; some parameters are unconstrained."""
+
+
 class MissingClockCorrection(PintTpuError):
     """No clock correction available for an observatory/epoch."""
 
@@ -172,3 +213,7 @@ class RequestRejected(PintTpuError):
             f"request rejected ({reason})"
             + (f": {detail}" if detail else "")
         )
+
+
+class PropertyAttributeError(PintTpuError):
+    """Error raised inside a property getter (reference parity)."""

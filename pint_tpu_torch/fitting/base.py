@@ -24,6 +24,7 @@ import torch
 from pint_tpu_torch.device import F64
 # ConvergenceFailure lives in exceptions.py; its old home keeps the name
 from pint_tpu_torch.exceptions import ConvergenceFailure  # noqa: F401
+from pint_tpu_torch.exceptions import DegeneracyWarning  # noqa: F401
 from pint_tpu_torch.obs.trace import TRACER
 from pint_tpu_torch.runtime.guard import check_deadlines
 
@@ -40,10 +41,6 @@ def record_fit(fit_fn):
             return fit_fn(self, *args, **kwargs)
 
     return wrapped
-
-
-class DegeneracyWarning(UserWarning):
-    """Near-degenerate normal-equation directions were zeroed."""
 
 
 def noffset(cm) -> int:

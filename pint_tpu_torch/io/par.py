@@ -12,7 +12,7 @@ import io
 import os
 from collections import OrderedDict
 
-__all__ = ["parse_parfile", "par_text"]
+__all__ = ["parse_parfile", "par_text", "parfile_dict_to_text"]
 
 
 def par_text(par) -> str:
@@ -43,3 +43,11 @@ def parse_parfile(par) -> "OrderedDict[str, list[list[str]]]":
             out.setdefault(tokens[0].upper(), []).append(tokens[1:])
     return out
 
+
+def parfile_dict_to_text(d) -> str:
+    """A ``parse_parfile`` dict back to par text, one line per entry."""
+    lines = []
+    for name, entries in d.items():
+        for tokens in entries:
+            lines.append(" ".join([name, *tokens]))
+    return "\n".join(lines) + "\n"

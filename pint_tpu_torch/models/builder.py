@@ -1,7 +1,8 @@
 """Model builder: par text -> TimingModel of the ported components.
 
-Counterpart of ``pint_tpu/models/builder.py::get_model``, with its
-selection rule: a component is included when the par text names a
+Counterpart of ``pint_tpu/models/builder.py``: ``ModelBuilder`` (its
+``choose_components`` and ``__call__``) and ``get_model``, with the
+reference's selection rule: a component is included when the par text names a
 parameter (or mask family, or indexed-family member such as DMX_0017)
 that it alone of the registered non-binary components
 (``Component.component_types``) accepts; the binary model is chosen by
@@ -10,9 +11,12 @@ component of the reference is ported, the wideband DMJUMP (``DMJump``)
 and DMEFAC/DMEQUAD (``ScaleDmError``) included.  A line no component
 accepts is left out with an ``UnknownParameterWarning`` and kept in
 ``model.unrecognized``, as the reference's builder does.  ``UNITS TCB``
-converts the parameters to TDB (``tcb_conversion.py``).  Par text read
-before, in the same data environment, comes from the parse cache as a
-clone.
+converts the parameters to TDB (``tcb_conversion.py``); any other UNITS
+but TDB raises ``TimingModelError`` (the reference reads such a par file
+as TDB without a word).  An unknown BINARY model or mixed equatorial and
+ecliptic astrometry raises ``TimingModelError``, as in the reference.
+Par text read before, in the same data environment, comes from the parse
+cache as a clone.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import pint_tpu_torch.models.solar_wind  # noqa: F401
 import pint_tpu_torch.models.spindown  # noqa: F401
 import pint_tpu_torch.models.troposphere  # noqa: F401
 import pint_tpu_torch.models.wave  # noqa: F401
-from pint_tpu_torch.exceptions import PintTpuError
+from pint_tpu_torch.exceptions import PintTpuError, TimingModelError
 from pint_tpu_torch.io.par import parse_parfile
 from pint_tpu_torch.models.astrometry import Astrometry
 from pint_tpu_torch.models.component import Component
@@ -66,9 +70,12 @@ _IGNORE = {"MODE", "EPHVER", "END", "NITS", "IBOOT"}
 
 #: top-level metadata lines, kept as strings and never read by a kernel
 _TOP_STR = ("PSR", "PSRJ", "PSRB", "EPHEM", "CLOCK", "CLK", "TIMEEPH",
-            "T2CMETHOD", "DILATEFREQ", "INFO", "DMDATA")
+            "T2CMETHOD", "DILATEFREQ", "INFO", "DMDATA", "BINARY")
 _TOP_FLOAT = ("NTOA", "TRES", "CHI2", "CHI2R")
 _TOP_MJD = ("START", "FINISH")
+#: the reference's aliases of top-level lines: each is kept under its
+#: parameter's own name (a PSRJ line sets PSR, a CLK line CLOCK)
+_TOP_ALIASES = {"PSRJ": "PSR", "PSRB": "PSR", "CLK": "CLOCK"}
 
 
 class UnknownParameterWarning(UserWarning):
@@ -99,33 +106,102 @@ def _ingest_tzr_eagerly(model: TimingModel) -> None:
             "environment in scope then", TZRDeferredWarning)
 
 
-def _choose(pardict) -> list:
-    """The reference's rule: each par name accepted by exactly one
-    selectable component selects it (sorted by class name), then the
-    BINARY line's model, then SolarSystemShapiro with astrometry."""
-    protos = {n: cls() for n, cls in SELECTABLE.items()}
-    chosen = set()
-    for name in pardict:
-        if name in _IGNORE:
-            continue
-        hits = [n for n, c in protos.items()
-                if name in c.mask_families()
-                or c.ensure_param(name) is not None]
-        if len(hits) == 1:
-            chosen.add(hits[0])
-    comps = [SELECTABLE[n]() for n in sorted(chosen)]
-    if sum(isinstance(c, Astrometry) for c in comps) > 1:
-        raise ValueError("par text mixes equatorial (RAJ/DECJ) and "
-                         "ecliptic (ELONG/ELAT) astrometry")
-    if "BINARY" in pardict:
-        kind = pardict["BINARY"][0][0].upper()
-        if kind not in BINARY_MODELS:
-            raise ValueError(f"unknown binary model {kind!r}")
-        comps.append(BINARY_MODELS[kind]())
-    if (any(isinstance(c, Astrometry) for c in comps)
-            and not any(isinstance(c, SolarSystemShapiro) for c in comps)):
-        comps.append(SolarSystemShapiro())
-    return comps
+class ModelBuilder:
+    """Par file -> validated TimingModel (reference:
+    ``pint_tpu/models/builder.py::ModelBuilder``): ``choose_components``
+    picks the components from the parsed par dict, ``__call__`` builds
+    the model, routes every line to its parameter, validates it and
+    ingests its TZR arrival."""
+
+    def __init__(self):
+        self.registry = dict(Component.component_types)
+
+    def choose_components(self, pardict) -> list:
+        """The reference's rule: each par name accepted by exactly one
+        non-binary component selects it (sorted by class name), then the
+        BINARY line's model, then SolarSystemShapiro with astrometry."""
+        protos = {n: cls() for n, cls in self.registry.items()
+                  if not issubclass(cls, PulsarBinary)}
+        chosen = set()
+        for name in pardict:
+            if name in _IGNORE:
+                continue
+            hits = [n for n, c in protos.items()
+                    if name in c.mask_families()
+                    or c.ensure_param(name) is not None]
+            if len(hits) == 1:
+                chosen.add(hits[0])
+        comps = [self.registry[n]() for n in sorted(chosen)]
+        if sum(isinstance(c, Astrometry) for c in comps) > 1:
+            raise TimingModelError(
+                "par file mixes equatorial (RAJ/DECJ) and ecliptic "
+                "(ELONG/ELAT) astrometry")
+        if "BINARY" in pardict:
+            kind = pardict["BINARY"][0][0].upper()
+            if kind not in BINARY_MODELS:
+                raise TimingModelError(f"unknown binary model {kind!r}")
+            comps.append(BINARY_MODELS[kind]())
+        if (any(isinstance(c, Astrometry) for c in comps)
+                and not any(isinstance(c, SolarSystemShapiro)
+                            for c in comps)):
+            comps.append(SolarSystemShapiro())
+        return comps
+
+    def __call__(self, par) -> TimingModel:
+        """Parse and build: the par file's model, validated, its TZR
+        arrival ingested."""
+        pardict = parse_parfile(par)
+        units = pardict.get("UNITS", [["TDB"]])[0][0].upper()
+        if units not in ("TDB", "TCB"):
+            raise TimingModelError(
+                f"UNITS {units!r}: only TDB and TCB par files")
+        model = TimingModel(components=self.choose_components(pardict))
+        counters: dict[tuple[int, str], int] = {}
+        unknown = {}
+        for name, entries in pardict.items():
+            if name in _IGNORE:
+                continue
+            if name == "UNITS":
+                model.top_params[name] = _top_param(name, [units])
+                continue
+            if name in _TOP_STR + _TOP_FLOAT + _TOP_MJD:
+                name = _TOP_ALIASES.get(name, name)
+                model.top_params[name] = _top_param(name, entries[0])
+                continue
+            routed = False
+            for c in model.components.values():
+                fams = c.mask_families()
+                if name in fams:
+                    key = (id(c), name)
+                    for tokens in entries:
+                        counters[key] = counters.get(key, 0) + 1
+                        fams[name](counters[key]).set_from_tokens(tokens)
+                    routed = True
+                    break
+                p = c.ensure_param(name)
+                if p is not None:
+                    p.set_from_tokens(entries[0])
+                    routed = True
+                    break
+            if not routed:
+                unknown[name] = entries
+        if unknown:
+            warnings.warn(
+                f"unrecognized par-file parameters {sorted(unknown)}",
+                UnknownParameterWarning)
+        model.unrecognized = unknown
+        psr = model.top_params.get("PSR")
+        model.name = psr.value if psr is not None else ""
+        if units == "TCB":
+            convert_tcb_tdb(model)
+        model.setup()
+        model.validate()
+        _ingest_tzr_eagerly(model)
+        return model
+
+
+def _build(par) -> TimingModel:
+    return ModelBuilder()(par)
 
 
 def _top_param(name, tokens):
@@ -134,61 +210,10 @@ def _top_param(name, tokens):
     elif name in _TOP_FLOAT:
         p = floatParameter(name)
     else:
-        p = strParameter(name)
+        p = strParameter(name, aliases=tuple(
+            a for a, n in _TOP_ALIASES.items() if n == name))
     p.set_from_tokens(tokens)
     return p
-
-
-def _build(par) -> TimingModel:
-    """Parse and build: the par text's model, validated, its TZR arrival
-    ingested."""
-    pardict = parse_parfile(par)
-    units = pardict.get("UNITS", [["TDB"]])[0][0].upper()
-    if units not in ("TDB", "TCB"):
-        raise ValueError(f"UNITS {units!r}: only TDB and TCB par files")
-    comps = _choose(pardict)
-    model = TimingModel(components=comps)
-    counters: dict[tuple[int, str], int] = {}
-    unknown = {}
-    for name, entries in pardict.items():
-        if name in _IGNORE or name == "BINARY":
-            continue
-        if name == "UNITS":
-            model.top_params[name] = _top_param(name, [units])
-            continue
-        if name in _TOP_STR + _TOP_FLOAT + _TOP_MJD:
-            model.top_params[name] = _top_param(name, entries[0])
-            continue
-        routed = False
-        for c in model.components.values():
-            fams = c.mask_families()
-            if name in fams:
-                key = (id(c), name)
-                for tokens in entries:
-                    counters[key] = counters.get(key, 0) + 1
-                    fams[name](counters[key]).set_from_tokens(tokens)
-                routed = True
-                break
-            p = c.ensure_param(name)
-            if p is not None:
-                p.set_from_tokens(entries[0])
-                routed = True
-                break
-        if not routed:
-            unknown[name] = entries
-    if unknown:
-        warnings.warn(f"unrecognized par-file parameters {sorted(unknown)}",
-                      UnknownParameterWarning)
-    model.unrecognized = unknown
-    psr = next((model.top_params[k] for k in ("PSR", "PSRJ", "PSRB")
-                if k in model.top_params), None)
-    model.name = psr.value if psr is not None else ""
-    if units == "TCB":
-        convert_tcb_tdb(model)
-    model.setup()
-    model.validate()
-    _ingest_tzr_eagerly(model)
-    return model
 
 
 # -- the parse cache of par text ---------------------------------------

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from pint_tpu_torch.constants import DM_CONST, SECS_PER_JULIAN_YEAR
+from pint_tpu_torch.exceptions import MissingParameter, TimingModelError
 from pint_tpu_torch.models.component import DelayComponent
 from pint_tpu_torch.models.parameter import (
     MJDParameter,
@@ -56,9 +57,10 @@ class ChromaticCM(DelayComponent):
         ks = self._deriv_ks()
         if ks:
             if ks != list(range(1, ks[-1] + 1)):
-                raise ValueError(f"non-contiguous chromatic derivatives "
-                                 f"CM{ks}")
-            self.require("CMEPOCH")
+                raise TimingModelError(f"non-contiguous chromatic "
+                                       f"derivatives CM{ks}")
+            if self.params["CMEPOCH"].value is None:
+                raise MissingParameter("ChromaticCM", "CMEPOCH")
 
     def cm_value(self, pdict, bundle):
         coeffs = [pdict["CM"]] + [pdict[f"CM{k}"] for k in self._deriv_ks()]

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+from pint_tpu_torch.exceptions import MissingParameter
 from pint_tpu_torch.models.parameter import Parameter, maskParameter
 
 # category evaluation order for delays/phases: the JAX package's
@@ -102,13 +103,13 @@ class Component:
         """Called once after all parameters are set."""
 
     def validate(self, model):
-        """Raise on ill-formed input."""
+        """Raise TimingModelError / MissingParameter on ill-formed input."""
 
     def require(self, *names):
         for n in names:
             p = self.params.get(n)
             if p is None or p.value is None:
-                raise ValueError(f"{type(self).__name__} needs {n}")
+                raise MissingParameter(type(self).__name__, n)
 
     def anchors(self) -> dict:
         """Host values the kernels are taken about, as ``{pdict key:

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from pint_tpu_torch.constants import DM_CONST, SECS_PER_JULIAN_YEAR
+from pint_tpu_torch.exceptions import MissingParameter, TimingModelError
 from pint_tpu_torch.models.component import DelayComponent
 from pint_tpu_torch.models.parameter import (
     MJDParameter,
@@ -21,7 +22,7 @@ from pint_tpu_torch.models.parameter import (
     prefix_index,
 )
 from pint_tpu_torch.ops.taylor import taylor_horner
-from pint_tpu_torch.toas.bundle import table_mjd
+from pint_tpu_torch.toas.bundle import as_table, table_mjd
 
 
 class DispersionDM(DelayComponent):
@@ -42,12 +43,30 @@ class DispersionDM(DelayComponent):
             )
         self.add_param(MJDParameter("DMEPOCH"))
 
+    def new_prefix_param(self, name):
+        """DM11 and beyond: the derivatives past the preallocated ones
+        (DM0 is not one)."""
+        k = prefix_index(name, "DM")
+        if k is None or k < 1:
+            return None
+        return self.add_param(floatParameter(
+            f"DM{k}", units=f"pc/cm^3/yr^{k}",
+            scale_to_internal=SECS_PER_JULIAN_YEAR ** (-k)))
+
     def validate(self, model):
         if (
             self.params["DM1"].value is not None
             and self.params["DMEPOCH"].value is None
         ):
-            raise ValueError("DMEPOCH required when DM1 is set")
+            raise TimingModelError("DMEPOCH required when DM1 is set")
+        set_ks = sorted(
+            int(n[2:]) for n in self.params
+            if n.startswith("DM") and n[2:].isdigit()
+            and self.params[n].value is not None
+        )
+        if set_ks and set_ks != list(range(1, set_ks[-1] + 1)):
+            raise TimingModelError(
+                f"non-contiguous DM derivatives: DM{set_ks}")
 
     def _coeffs(self, pdict):
         out = [pdict["DM"]]
@@ -112,10 +131,9 @@ class DispersionDMX(DelayComponent):
         for i in self.dmx_indices:
             if (self.params[f"DMXR1_{i:04d}"].value is None
                     or self.params[f"DMXR2_{i:04d}"].value is None):
-                raise ValueError(
-                    f"DMX_{i:04d} is set but DMXR1_{i:04d}/DMXR2_{i:04d} "
-                    "are not"
-                )
+                raise MissingParameter(
+                    "DispersionDMX", f"DMXR1_{i:04d}/DMXR2_{i:04d}",
+                    f"DMX_{i:04d} is set but its MJD range bounds are not")
 
     def setup(self, model):
         self.dmx_indices = sorted(
@@ -126,22 +144,27 @@ class DispersionDMX(DelayComponent):
     def basis_keys(self) -> list[str]:
         return [self.mask_key]
 
+    def dmx_masks(self, toas) -> dict:
+        """Each range's 0/1 mask ``DMX_####`` over a TOA table or TOAs,
+        from DMXR1/DMXR2 (both ends inclusive)."""
+        mjd = table_mjd(as_table(toas))
+        out = {}
+        for i in self.dmx_indices:
+            r1 = self.params[f"DMXR1_{i:04d}"].value
+            r2 = self.params[f"DMXR2_{i:04d}"].value
+            out[f"DMX_{i:04d}"] = ((mjd >= r1) & (mjd <= r2)).astype(
+                np.float64)
+        return out
+
     def extra_masks(self, toas) -> dict:
         """The (n, nranges) range matrix: from the table's per-range masks
         ``DMX_####`` where it carries them (state exported by the JAX
-        package), else from DMXR1/DMXR2 (both ends inclusive)."""
+        package), else ``dmx_masks``."""
         given = toas.get("masks") or {}
-        mjd = table_mjd(toas)
-        cols = []
-        for i in self.dmx_indices:
-            name = f"DMX_{i:04d}"
-            if name in given:
-                cols.append(np.asarray(given[name], np.float64))
-                continue
-            r1 = self.params[f"DMXR1_{i:04d}"].value
-            r2 = self.params[f"DMXR2_{i:04d}"].value
-            cols.append(((mjd >= r1) & (mjd <= r2)).astype(np.float64))
-        M = np.stack(cols, axis=1) if cols else np.zeros((len(mjd), 0))
+        own = self.dmx_masks(toas)
+        cols = [np.asarray(given.get(n, own[n]), np.float64) for n in own]
+        M = (np.stack(cols, axis=1) if cols
+             else np.zeros((len(table_mjd(toas)), 0)))
         return {self.mask_key: M}
 
     def dm_value(self, pdict, bundle):

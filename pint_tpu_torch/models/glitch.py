@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from pint_tpu_torch.constants import SECS_PER_DAY
+from pint_tpu_torch.exceptions import MissingParameter
 from pint_tpu_torch.models.component import PhaseComponent
 from pint_tpu_torch.models.parameter import floatParameter, prefix_index
 from pint_tpu_torch.ops.dd import DD
@@ -62,6 +63,11 @@ class Glitch(PhaseComponent):
             int(n[5:]) for n in self.params
             if n.startswith("GLEP_") and self.params[n].value is not None
         )
+
+    def validate(self, model):
+        for i in self.glitch_indices:
+            if self.params[f"GLEP_{i}"].value is None:
+                raise MissingParameter("Glitch", f"GLEP_{i}")
 
     def host_state(self) -> tuple:
         # which glitches have a decay term shapes the kernel

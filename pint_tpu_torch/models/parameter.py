@@ -1,7 +1,9 @@
-"""Timing-model parameters, cut to the kinds the ported components use.
+"""Timing-model parameters.
 
 Counterpart of ``pint_tpu/models/parameter.py``: float (f64 or
-double-double), MJD epoch, angle, mask, pair, bool and string parameters.
+double-double), MJD epoch, angle, mask, pair, bool, int and string
+parameters, the ``prefixParameter`` factory of indexed families and the
+read-only derived ``funcParameter``.
 Each declares its par-file ``units`` and a ``scale_to_internal`` factor to
 the unit-free internal convention (seconds, radians, Hz) the kernels read.
 
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import re
 from decimal import Decimal, localcontext
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -110,6 +112,11 @@ class Parameter:
         given = getattr(self, "_given", None)
         if given is not None and given[0] is self._internal:
             return given[1]
+        return self.value
+
+    @property
+    def quantity(self):
+        """The value in par-file units (the reference's name for it)."""
         return self.value
 
     def _to_internal(self, v):
@@ -238,22 +245,52 @@ class floatParameter(Parameter):
         return f"{v:.17g}"
 
 
-class boolParameter(Parameter):
-    def _parse_value_str(self, s):
-        s = s.strip().upper()
-        if s in ("Y", "YES", "T", "TRUE", "1"):
-            return True
-        if s in ("N", "NO", "F", "FALSE", "0"):
-            return False
-        raise ValueError(f"cannot parse bool {s!r}")
+class intParameter(Parameter):
+    """An integer; its internal value is the integer times
+    ``scale_to_internal``, as the reference's."""
 
-    def set_from_tokens(self, tokens):
-        self.value = self._parse_value_str(tokens[0]) if tokens else True
+    def _parse_value_str(self, s):
+        return int(float(s))
 
     def _to_internal(self, v):
-        return v
+        return int(v)
 
-    _from_internal = _to_internal
+    def _from_internal(self, i):
+        return i
+
+    def internal(self):
+        return None if self._internal is None else (
+            self._internal * self.scale_to_internal)
+
+    def set_internal(self, v):
+        self.value = v / self.scale_to_internal
+
+
+def s_to_bool(s: str) -> bool:
+    """Par-file truth value: Y/YES/T/TRUE/1 or N/NO/F/FALSE/0, any case."""
+    s = s.strip().upper()
+    if s in ("Y", "YES", "T", "TRUE", "1"):
+        return True
+    if s in ("N", "NO", "F", "FALSE", "0"):
+        return False
+    raise PintTpuError(f"cannot parse bool {s!r}")
+
+
+class boolParameter(Parameter):
+    def _parse_value_str(self, s):
+        return s_to_bool(s)
+
+    def set_from_tokens(self, tokens):
+        self.value = tokens[0] if tokens else True
+
+    def _to_internal(self, v):
+        return s_to_bool(v) if isinstance(v, str) else bool(v)
+
+    def _from_internal(self, i):
+        return i
+
+    def _par_value(self):
+        return self._internal  # the reference keeps the parsed truth value
 
     def _format_value(self):
         return "Y" if self.value else "N"
@@ -300,7 +337,7 @@ class MJDParameter(Parameter):
         self.value = (int(d[0]), HostDD(s.hi[0], s.lo[0]))
 
     def set_internal(self, v):
-        raise TypeError(
+        raise PintTpuError(
             "epoch parameters update via add_internal_delta, not set_internal"
         )
 
@@ -457,9 +494,13 @@ class maskParameter(floatParameter):
                        f"{self.key_value[1]:.8f} ")
         else:
             key_str = f"{self.key} {self.key_value[0]} "
-        prefix = re.sub(r"\d+$", "", self.name)
-        line = f"{prefix:<8} {key_str}{self._format_value()}"
+        line = f"{self.name_no_index:<8} {key_str}{self._format_value()}"
         return line + self._fit_and_uncertainty()
+
+    @property
+    def name_no_index(self) -> str:
+        """The family's prefix: 'JUMP' of JUMP3."""
+        return re.sub(r"\d+$", "", self.name)
 
 
 class pairParameter(Parameter):
@@ -482,6 +523,47 @@ class pairParameter(Parameter):
     def _format_value(self):
         a, b = self._par_value()
         return f"{a:.17g} {b:.17g}"
+
+
+class funcParameter(Parameter):
+    """Read-only parameter derived from others: ``func`` of the values
+    of ``params`` (names on the model), never written to a par file."""
+
+    def __init__(self, name, func=None, params=(), **kw):
+        self._func = func
+        self._params = params
+        super().__init__(name, **kw)
+
+    def evaluate(self, model):
+        vals = [getattr(model, p).value for p in self._params]
+        if any(v is None for v in vals):
+            return None
+        return self._func(*vals)
+
+    def as_parfile_line(self):
+        return ""  # derived, never written
+
+
+class prefixParameter:
+    """Factory of an indexed family (F2.., DMX_0001, WXSIN_0001, ...): a
+    template parameter type stamped out by index on demand."""
+
+    def __init__(self, prefix: str, index_format: str = "d",
+                 template: Callable[[str], Parameter] = None,
+                 start_index: int = 0):
+        self.prefix = prefix
+        self.index_format = index_format
+        self.template = template
+        self.start_index = start_index
+
+    def match(self, name: str) -> Optional[int]:
+        """The index of ``name`` in this family, else None."""
+        return prefix_index(name, self.prefix)
+
+    def instance(self, index: int) -> Parameter:
+        par = self.template(f"{self.prefix}{index:{self.index_format}}")
+        par.index = index
+        return par
 
 
 def prefix_index(name: str, prefix: str) -> Optional[int]:

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pint_tpu_torch.exceptions import MissingParameter, TimingModelError
 from pint_tpu_torch.models.component import PhaseComponent
 from pint_tpu_torch.models.parameter import (
     MJDParameter,
@@ -72,7 +73,12 @@ class PiecewiseSpindown(PhaseComponent):
 
     def validate(self, model):
         for i in self.piece_indices:
-            self.require(f"PWEP_{i}", f"PWSTART_{i}", f"PWSTOP_{i}")
+            if self.params[f"PWEP_{i}"].value is None:
+                raise MissingParameter("PiecewiseSpindown", f"PWEP_{i}")
+            if (self.params[f"PWSTART_{i}"].value is None
+                    or self.params[f"PWSTOP_{i}"].value is None):
+                raise TimingModelError(
+                    f"piecewise-spindown piece {i} missing PWSTART/PWSTOP")
 
     def basis_keys(self) -> list[str]:
         return [f"PW_{i}" for i in self.piece_indices]

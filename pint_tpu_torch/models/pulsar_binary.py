@@ -32,6 +32,7 @@ from pint_tpu_torch.models.binaries.orbits import (
     phase_from_orbits,
     to_f64,
 )
+from pint_tpu_torch.exceptions import TimingModelError
 from pint_tpu_torch.models.component import DelayComponent
 from pint_tpu_torch.models.parameter import (
     MJDParameter,
@@ -207,12 +208,15 @@ class BinaryBTPiecewise(BinaryBT):
             r1 = self.params[f"XR1_{i:04d}"].value
             r2 = self.params[f"XR2_{i:04d}"].value
             if r1 is None or r2 is None:
-                raise ValueError(f"BT piecewise range {i} misses XR1/XR2")
+                raise TimingModelError(
+                    f"BT piecewise range {i} missing XR1/XR2 bounds")
             spans.append((r1, r2, i))
         spans.sort()
         for (a1, a2, i), (b1, b2, j) in zip(spans, spans[1:]):
             if b1 < a2:
-                raise ValueError(f"BT piecewise ranges {i} and {j} overlap")
+                raise TimingModelError(
+                    f"BT piecewise ranges {i} and {j} overlap "
+                    f"([{a1}, {a2}) vs [{b1}, {b2}))")
 
     def basis_keys(self) -> list[str]:
         return [f"BTX_{i:04d}" for i in self.piece_indices]
@@ -319,7 +323,9 @@ class BinaryDDH(BinaryDD):
         self.require("H3", "STIGMA")
         stig = float(self.params["STIGMA"].value)
         if not 0.0 < stig < 1.0:
-            raise ValueError(f"DDH needs 0 < STIGMA < 1 (got {stig})")
+            raise TimingModelError(
+                f"DDH needs 0 < STIGMA < 1 (got {stig}): "
+                "stigma = sini/(1+cosi) and m2r = H3/STIGMA^3")
 
     def _pk(self, pdict, dt_f):
         pk = super()._pk(pdict, dt_f)
@@ -433,7 +439,9 @@ class BinaryDDK(BinaryDD):
         super().validate(model)
         self.require("KIN", "KOM")
         if self._astrometry_ref is None:
-            raise ValueError("DDK requires an astrometry component")
+            raise TimingModelError(
+                "DDK requires an astrometry component (KIN/KOM couple the "
+                "orbit orientation to sky position)")
 
     def _kopeikin(self, pdict, bundle, dt_f):
         """-> (a1_eff, om_eff, kin) per TOA."""

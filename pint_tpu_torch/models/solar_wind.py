@@ -31,6 +31,7 @@ from pint_tpu_torch.constants import (
     C,
 )
 from pint_tpu_torch.models.astrometry import Astrometry, _dot3
+from pint_tpu_torch.exceptions import MissingParameter, TimingModelError
 from pint_tpu_torch.models.component import DelayComponent
 from pint_tpu_torch.models.parameter import (
     MJDParameter,
@@ -104,14 +105,15 @@ class SolarWindDispersion(DelayComponent):
     def validate(self, model):
         if (self.params["NE_SW"].value is not None
                 and self._astrometry_ref is None):
-            raise ValueError("SolarWindDispersion needs an astrometry "
-                             "component")
+            raise TimingModelError("SolarWindDispersion needs an astrometry "
+                                   "component")
         ks = self._deriv_ks()
         if ks:
             if ks != list(range(1, ks[-1] + 1)):
-                raise ValueError(f"non-contiguous solar-wind derivatives "
-                                 f"NE_SW{ks}")
-            self.require("SWEPOCH")
+                raise TimingModelError(f"non-contiguous solar-wind "
+                                       f"derivatives NE_SW{ks}")
+            if self.params["SWEPOCH"].value is None:
+                raise MissingParameter("SolarWindDispersion", "SWEPOCH")
 
     def _ne_sw(self, pdict, bundle):
         coeffs = [pdict["NE_SW"]] + [pdict[f"NE_SW{k}"]
@@ -186,9 +188,12 @@ class SolarWindDispersionX(DelayComponent):
 
     def validate(self, model):
         if self.swx_indices and self._astrometry_ref is None:
-            raise ValueError("SWX needs an astrometry component")
+            raise TimingModelError("SWX needs an astrometry component")
         for i in self.swx_indices:
-            self.require(f"SWXR1_{i:04d}", f"SWXR2_{i:04d}")
+            if (self.params[f"SWXR1_{i:04d}"].value is None
+                    or self.params[f"SWXR2_{i:04d}"].value is None):
+                raise MissingParameter("SolarWindDispersionX",
+                                       f"SWXR1_{i:04d}/SWXR2_{i:04d}")
 
     def basis_keys(self) -> list[str]:
         return [f"SWX_{i:04d}" for i in self.swx_indices]

@@ -8,8 +8,13 @@ phase over 20 yr).
 
 from __future__ import annotations
 
+from pint_tpu_torch.exceptions import TimingModelError
 from pint_tpu_torch.models.component import PhaseComponent
-from pint_tpu_torch.models.parameter import MJDParameter, floatParameter
+from pint_tpu_torch.models.parameter import (
+    MJDParameter,
+    floatParameter,
+    prefix_index,
+)
 from pint_tpu_torch.ops.taylor import taylor_horner_dd, taylor_horner_deriv_dd
 from pint_tpu_torch.toas.bundle import first_day
 
@@ -29,6 +34,13 @@ class Spindown(PhaseComponent):
             self.add_param(floatParameter(f"F{k}", units=f"Hz/s^{k}"))
         self.add_param(MJDParameter("PEPOCH"))
 
+    def new_prefix_param(self, name):
+        """F13 and beyond: the terms past the preallocated ones."""
+        k = prefix_index(name, "F")
+        if k is None:
+            return None
+        return self.add_param(floatParameter(f"F{k}", units=f"Hz/s^{k}"))
+
     def validate(self, model):
         self.require("F0")
         set_ks = sorted(
@@ -37,9 +49,10 @@ class Spindown(PhaseComponent):
             and self.params[n].value is not None
         )
         if set_ks != list(range(0, set_ks[-1] + 1)):
-            raise ValueError(f"non-contiguous spin terms F{set_ks}")
+            raise TimingModelError(
+                f"non-contiguous spin terms: F{set_ks} (gaps not allowed)")
         if len(set_ks) > 1 and self.params["PEPOCH"].value is None:
-            raise ValueError("PEPOCH required when F1.. are set")
+            raise TimingModelError("PEPOCH required when F1.. are set")
 
     def _coeff_names(self):
         """Contiguous F-terms F0..Fn actually set."""

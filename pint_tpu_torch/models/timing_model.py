@@ -172,6 +172,10 @@ class TimingModel:
         absph = self.components.get("AbsPhase")
         return absph if absph is not None and absph.anchored else None
 
+    def has_tzr_anchor(self) -> bool:
+        """True when the model carries an AbsPhase TZR anchor."""
+        return self.tzr_anchor is not None
+
     def make_bundle(self, toas, device) -> TOABundle:
         """Host TOA table or TOAs -> device bundle with this model's
         masks, and with its TZR row: the table's ``"tzr"`` row when it
@@ -214,7 +218,8 @@ class TimingModel:
         component's parameters in evaluation order (reference:
         ``TimingModel.as_parfile``), with a BINARY line for the binary
         model so that the text reads back to the same model."""
-        lines = [p.as_parfile_line() for p in self.top_params.values()]
+        lines = [p.as_parfile_line() for n, p in self.top_params.items()
+                 if n != "BINARY"]  # written from the binary component
         lines += [f"{'BINARY':<15} {c.binary_model_name:>25}\n"
                   for c in self.components.values()
                   if getattr(c, "binary_model_name", "")]
@@ -492,7 +497,7 @@ class CompiledModel:
         for c in self.model.phase_components:
             if hasattr(c, "spin_frequency"):
                 return c.spin_frequency(pd, self.bundle)
-        raise ValueError("no spindown component in model")
+        raise TimingModelError("no spindown component in model")
 
     def phase_residuals(self, x):
         """Phase residuals in cycles (f64), no mean subtraction, from the

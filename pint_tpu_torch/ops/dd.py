@@ -255,6 +255,20 @@ class DD(NamedTuple):
         return DD(*_FromProdCore.apply(a, b))
 
     @staticmethod
+    def from_string(s: str, device=None) -> "DD":
+        """A decimal string as the nearest DD (exact decimal arithmetic
+        on the host), a 0-d pair on ``device`` (None: torch's default)."""
+        from decimal import Decimal, localcontext
+
+        with localcontext() as ctx:
+            ctx.prec = 50
+            d = Decimal(s)
+            hi = float(d)
+            lo = float(d - Decimal(hi))
+        return DD(torch.tensor(hi, dtype=F64, device=device),
+                  torch.tensor(lo, dtype=F64, device=device))
+
+    @staticmethod
     def zeros(shape, device=None) -> "DD":
         z = torch.zeros(shape, dtype=F64, device=device)
         return DD(z, z)
@@ -318,6 +332,22 @@ class DD(NamedTuple):
     def __getitem__(self, idx) -> "DD":
         return DD(self.hi[idx], self.lo[idx])
 
+    def reshape(self, *shape) -> "DD":
+        return DD(self.hi.reshape(*shape), self.lo.reshape(*shape))
+
+    def sum(self, axis=None) -> "DD":
+        """Compensated sum along ``axis`` (all elements when None): the
+        DD additions in index order from zero, as the reference's scan."""
+        hi, lo = self.hi, self.lo
+        if axis is None:
+            hi, lo, axis = hi.reshape(-1), lo.reshape(-1), 0
+        hi = torch.movedim(hi, axis, 0)
+        lo = torch.movedim(lo, axis, 0)
+        out = DD(torch.zeros_like(hi[0]), torch.zeros_like(lo[0]))
+        for i in range(hi.shape[0]):
+            out = out + DD(hi[i], lo[i])
+        return out
+
 
 def dd_sqrt(x: DD) -> DD:
     """DD square root via one Newton step on the f64 estimate."""
@@ -331,6 +361,11 @@ def dd_sqrt(x: DD) -> DD:
         torch.where(r == 0, zero, diff.lo / (2.0 * safe_r)),
     )
     return (r_dd + corr).normalize()
+
+
+def dd_abs(x: DD) -> DD:
+    neg = x.hi < 0
+    return DD(torch.where(neg, -x.hi, x.hi), torch.where(neg, -x.lo, x.lo))
 
 
 def dd_where(cond, a: DD, b: DD) -> DD:

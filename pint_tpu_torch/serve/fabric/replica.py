@@ -196,6 +196,11 @@ class BatchWork:
             if stages is not None:
                 stages.update(self.stamps)
 
+    @property
+    def op(self) -> str:
+        """The request kind: 'residuals', 'fit', 'append', ..."""
+        return self.key[0]
+
     def kernel_key(self) -> tuple:
         return (self.key, self.cap)
 

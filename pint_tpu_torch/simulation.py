@@ -132,6 +132,79 @@ def msp_wideband_par(ndmx: int = 150, seed: int = 0) -> str:
     ]) + "\n"
 
 
+#: NANOGrav-style sub-band frequencies (MHz), cycled over the TOAs while
+#: the receiver flags alternate (L-wide, S-wide): the even TOAs get the
+#: four L-wide channels, the odd ones the four S-wide channels
+NANOGRAV_FREQS = (1180.0, 1800.0, 1340.0, 2000.0, 1500.0, 2200.0, 1660.0,
+                  2400.0)
+#: J1713+0747's span in the configuration below (MJD)
+J1713_SPAN = (53000.0, 56300.0)
+
+
+def epoch_mjds(nepoch: int, per_epoch: int, start_mjd: float,
+               end_mjd: float, spacing_s: float = 1.0) -> np.ndarray:
+    """Observing epochs: ``nepoch`` sessions evenly spread over
+    [start_mjd, end_mjd], each of ``per_epoch`` TOAs ``spacing_s`` apart.
+    With the receiver flags alternating TOA by TOA, each receiver's TOAs
+    of a session are 2 x spacing_s apart, inside one ECORR epoch
+    (``models/noise.py::ECORR_EPOCH_GAP_S``)."""
+    starts = np.linspace(start_mjd, end_mjd - per_epoch * spacing_s
+                         / SECS_PER_DAY, nepoch)
+    steps = np.arange(per_epoch) * spacing_s / SECS_PER_DAY
+    return (starts[:, None] + steps[None, :]).reshape(-1)
+
+
+def _dmx_lines(ndmx: int, span, seed: int) -> list[str]:
+    rng = np.random.default_rng(seed)
+    dmx = rng.normal(0.0, 1e-3, ndmx)
+    edges = np.linspace(span[0] - 0.5, span[1] + 0.5, ndmx + 1)
+    lines = []
+    for i in range(ndmx):
+        lines += [f"DMX_{i + 1:04d} {dmx[i]:.9e} 1",
+                  f"DMXR1_{i + 1:04d} {edges[i]:.4f}",
+                  f"DMXR2_{i + 1:04d} {edges[i + 1]:.4f}"]
+    return lines
+
+
+def j1713_par(ndmx: int = 100, seed: int = 0) -> str:
+    """Par text of a J1713+0747-like pulsar as NANOGrav times it (the
+    reference's BASELINE config 2: DD binary, GLS fit with ECORR):
+    equatorial astrometry with proper motion and parallax, F0/F1, DM
+    frozen with ``ndmx`` DMX ranges over MJD 52999.5-56300.5 (values from
+    ``default_rng(seed)``), FD1-FD3, a JUMP on S-wide, a DD orbit with
+    PB, A1, ECC, OM, T0, PBDOT, M2 and SINI free, EFAC, EQUAD and ECORR
+    on both receivers and 30-harmonic power-law red noise.  Free: 5
+    astrometric, 2 spin, ndmx DMX, 3 FD, 1 JUMP and 8 binary parameters
+    (119 at 100 ranges; 120 design columns with the offset)."""
+    lines = [
+        "PSR J1713+0747SIM", "RAJ 17:13:49.5331 1", "DECJ 07:47:37.492 1",
+        "PMRA 4.918 1", "PMDEC -3.914 1", "PX 0.85 1", "POSEPOCH 55000",
+        "F0 218.81184385472 1", "F1 -4.0841e-16 1", "PEPOCH 55000",
+        "DM 15.9907",
+    ]
+    lines += _dmx_lines(ndmx, J1713_SPAN, seed)
+    lines += [
+        "FD1 3.1e-5 1", "FD2 -1.2e-5 1", "FD3 4.0e-6 1",
+        "JUMP -f S-wide 1.3e-6 1",
+        "BINARY DD", "PB 67.8251309 1", "A1 32.342422 1",
+        "ECC 7.4939e-05 1", "OM 176.2 1", "T0 53761.03 1", "PBDOT 0.0 1",
+        "M2 0.29 1", "SINI 0.95 1",
+        "EFAC -f L-wide 1.1", "EFAC -f S-wide 1.05",
+        "EQUAD -f L-wide 0.1", "EQUAD -f S-wide 0.08",
+        "ECORR -f L-wide 0.3", "ECORR -f S-wide 0.2",
+        "TNREDAMP -14.2", "TNREDGAM 2.5", "TNREDC 30",
+    ]
+    return "\n".join(lines) + "\n"
+
+
+def b1855_par(ndmx: int = 100, seed: int = 0) -> str:
+    """Par text of the reference's BASELINE config 3 (B1855+09 with
+    power-law red noise and ECORR, a correlated-noise GLS fit):
+    :func:`msp_par` with ECORR on both receivers.  Free: msp_par's (117
+    at 100 ranges; 118 design columns with the offset)."""
+    return msp_par(ndmx, seed) + "ECORR -f L-wide 0.4\nECORR -f S-wide 0.25\n"
+
+
 def pta_pars(npsr: int = 45, ndmx: int = 100, seed: int = 0) -> list[str]:
     """Par texts of a pulsar timing array of ``npsr`` pulsars of
     :func:`msp_par`'s composition (so one PTA batch takes them), each
@@ -341,11 +414,13 @@ def make_test_pulsar(par: str, ntoa: int = 64, start_mjd: float = 54000.0,
     simulated arrivals.
 
     With ``obs`` (one code, a per-TOA sequence or a cycling pattern) or
-    ``mjds`` (explicit epochs), the reference's path: ingested port
-    ``TOAs`` at those sites (``obs`` defaults to '@' then), as
-    ``pint_tpu/simulation.py::make_test_pulsar`` builds them.
+    ``mjds`` (explicit epochs) without ``orbit``, the reference's path:
+    ingested port ``TOAs`` at those sites (``obs`` defaults to '@' then),
+    as ``pint_tpu/simulation.py::make_test_pulsar`` builds them.
 
-    Without either, a host TOA table of barycentric arrivals:
+    Without ``obs``, and without ``mjds`` unless ``orbit`` is set, a host
+    TOA table of barycentric arrivals, uniform in MJD or at the given
+    ``mjds`` (sorted):
 
     ``orbit=True`` then puts the observatory on a synthetic circular 1-AU
     orbit in the x-y plane with a one-year period, phased from
@@ -360,18 +435,22 @@ def make_test_pulsar(par: str, ntoa: int = 64, start_mjd: float = 54000.0,
     (``CompiledModel.dm_model`` at the par values) plus N(0, dm_error)
     noise drawn after the timing jitter.
     ``device`` is where the inversion's residual sweeps run."""
-    if obs is not None or mjds is not None:
+    if obs is not None or (mjds is not None and not orbit):
         if orbit or dm_error is not None:
             raise ValueError(
                 "orbit and dm_error apply to the barycentric table path "
-                "only (no obs=, no mjds=)")
+                "only (no obs=)")
         return _make_test_pulsar_toas(
             par, ntoa, start_mjd, end_mjd, seed, jitter_us, freqs, flags,
             "@" if obs is None else obs, error_us, iterations, mjds,
             device)
     rng = np.random.default_rng(seed)
     model = get_model(par)
-    mjds = np.linspace(start_mjd, end_mjd, ntoa)
+    if mjds is None:
+        mjds = np.linspace(start_mjd, end_mjd, ntoa)
+    else:
+        mjds = np.sort(np.asarray(mjds, dtype=np.float64))
+        ntoa = len(mjds)
     freq = np.resize(np.asarray(freqs, dtype=np.float64), ntoa)
     err = np.full(ntoa, error_us)
     mjd_int = np.floor(mjds).astype(np.int64)

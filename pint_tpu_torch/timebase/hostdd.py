@@ -126,6 +126,28 @@ class HostDD:
     def to_float(self):
         return self.hi + self.lo
 
+    def split_int_frac(self):
+        """(integer part, fractional part in [-0.5, 0.5)), carried as
+        ``ops/dd.py::DD.split_int_frac`` carries them."""
+        ihi = np.floor(self.hi + 0.5)
+        rem = HostDD(self.hi - ihi, self.lo).normalize()
+        ilo = np.floor(rem.hi + 0.5)
+        frac = HostDD(rem.hi - ilo, rem.lo).normalize()
+        carry = np.floor(frac.hi + frac.lo + 0.5)
+        return ihi + ilo + carry, (frac - carry).to_float()
+
+    def to_device(self, device=None):
+        """The same pair as an ``ops/dd.py::DD`` of f64 tensors on
+        ``device`` (None: the CUDA card)."""
+        import torch
+
+        from pint_tpu_torch.device import resolve_device
+        from pint_tpu_torch.ops.dd import DD
+
+        dev = resolve_device(device)
+        return DD(torch.as_tensor(self.hi, dtype=torch.float64, device=dev),
+                  torch.as_tensor(self.lo, dtype=torch.float64, device=dev))
+
     def __float__(self):
         return float(self.hi + self.lo)
 

@@ -144,6 +144,11 @@ class TimeArray:
         return TimeArray(mjd_int, sec, scale)
 
     @staticmethod
+    def from_mjd_two_part(day, sec_of_day, scale: str = "tdb") -> "TimeArray":
+        """From integer MJD days and float seconds of day."""
+        return TimeArray(day, HostDD(sec_of_day), scale)
+
+    @staticmethod
     def from_mjd_float(mjd, scale: str = "tdb") -> "TimeArray":
         """From float64 MJD (sub-µs resolution only — for tests/sim)."""
         mjd = np.atleast_1d(np.asarray(mjd, dtype=np.float64))

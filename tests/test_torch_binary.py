@@ -419,10 +419,10 @@ def test_tempo_unit_scale():
 def _binary_only(par, kind):
     """The binary component the builder picks for ``kind`` (its
     parameters need not validate)."""
-    from pint_tpu_torch.models.builder import _choose, parse_parfile
+    from pint_tpu_torch.models.builder import ModelBuilder, parse_parfile
     from pint_tpu_torch.models.pulsar_binary import PulsarBinary
 
-    return [c for c in _choose(parse_parfile(par))
+    return [c for c in ModelBuilder().choose_components(parse_parfile(par))
             if isinstance(c, PulsarBinary)]
 
 
